@@ -1,0 +1,132 @@
+"""MiniLM-class sentence encoder as a torch ``nn.Module``.
+
+Counterpart of ``rag_faiss_embedding_tpu/models/minilm.py`` (the Flax
+encoder), the same network: a BERT post-LN encoder at MiniLM-L6 scale
+(6 layers, hidden 384, 12 heads, FFN 1536, vocab 30522, 512 positions).
+
+- word + position + token-type embeddings, then LayerNorm (eps 1e-12, f32);
+- the attention mask is added to the float32 logits as -1e9, softmax in f32;
+- exact (erf) GELU;
+- CLS or mean pooling; only the (B, hidden) pooled output leaves.
+
+Module names follow the Flax parameter tree (``models/convert.py`` moves
+weights across). This is the inference encoder: no dropout, no gradients.
+Compute is float32; the Flax model's bfloat16 compute mode is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class MiniLMConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 384
+    num_layers: int = 6
+    num_heads: int = 12
+    intermediate_size: int = 1536
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    dropout_rate: float = 0.1  # kept for config parity; inference only
+    dtype: str = "float32"  # compute dtype; only "float32" is ported
+
+
+class Embeddings(nn.Module):
+    def __init__(self, cfg: MiniLMConfig):
+        super().__init__()
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = nn.Embedding(
+            cfg.max_position_embeddings, cfg.hidden_size)
+        self.token_type_embeddings = nn.Embedding(
+            cfg.type_vocab_size, cfg.hidden_size)
+        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+    def forward(self, input_ids: torch.Tensor,
+                token_type_ids: torch.Tensor) -> torch.Tensor:
+        pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
+        x = (self.word_embeddings(input_ids)
+             + self.position_embeddings(pos)[None]
+             + self.token_type_embeddings(token_type_ids))
+        return self.layer_norm(x)
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: MiniLMConfig):
+        super().__init__()
+        h = cfg.hidden_size
+        self.num_heads = cfg.num_heads
+        self.head_dim = h // cfg.num_heads
+        self.query = nn.Linear(h, h)
+        self.key = nn.Linear(h, h)
+        self.value = nn.Linear(h, h)
+        self.output = nn.Linear(h, h)
+
+    def forward(self, x: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
+        b, t, h = x.shape
+        split = lambda y: y.view(b, t, self.num_heads, self.head_dim)
+        q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
+        logits = torch.einsum("bthd,bshd->bhts", q, k) * self.head_dim ** -0.5
+        probs = torch.softmax(logits + attn_bias, dim=-1)
+        ctx = torch.einsum("bhts,bshd->bthd", probs, v)
+        return self.output(ctx.reshape(b, t, h))
+
+
+class Layer(nn.Module):
+    def __init__(self, cfg: MiniLMConfig):
+        super().__init__()
+        h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.attention = SelfAttention(cfg)
+        self.attention_norm = nn.LayerNorm(h, eps=eps)
+        self.intermediate = nn.Linear(h, cfg.intermediate_size)
+        self.ffn_output = nn.Linear(cfg.intermediate_size, h)
+        self.ffn_norm = nn.LayerNorm(h, eps=eps)
+
+    def forward(self, x: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
+        x = self.attention_norm(x + self.attention(x, attn_bias))
+        hdn = F.gelu(self.intermediate(x), approximate="none")
+        return self.ffn_norm(x + self.ffn_output(hdn))
+
+
+class MiniLMEncoder(nn.Module):
+    """BERT-style encoder producing pooled sentence embeddings."""
+
+    def __init__(self, cfg: MiniLMConfig = MiniLMConfig()):
+        super().__init__()
+        if cfg.dtype != "float32":
+            raise NotImplementedError(
+                f"compute dtype {cfg.dtype!r} is not ported; use 'float32'")
+        self.cfg = cfg
+        self.embeddings = Embeddings(cfg)
+        self.layers = nn.ModuleList(Layer(cfg) for _ in range(cfg.num_layers))
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        token_type_ids: Optional[torch.Tensor] = None,
+        *,
+        pooling: str = "cls",
+    ) -> torch.Tensor:
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = self.embeddings(input_ids, token_type_ids)
+        # additive mask: 0 for real tokens, large-negative for padding
+        attn_bias = torch.where(
+            attention_mask[:, None, None, :] > 0, 0.0, -1e9
+        ).to(torch.float32)
+        for layer in self.layers:
+            x = layer(x, attn_bias)
+        if pooling == "cls":
+            # reference uses CLS-token pooling (vectorization.py:44)
+            return x[:, 0]
+        if pooling == "mean":
+            mask = attention_mask[..., None].to(torch.float32)
+            return (x * mask).sum(1) / mask.sum(1).clamp_min(1e-9)
+        raise ValueError(f"unknown pooling {pooling!r}")

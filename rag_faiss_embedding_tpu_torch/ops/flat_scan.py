@@ -1,0 +1,210 @@
+"""Fused distance + top-k flat scan: the CUDA kernel and its plain version.
+
+Port of ``rag_faiss_embedding_tpu/ops/pallas_scan.py`` (K1, ``_scan_kernel``).
+``flat_search`` keeps that function's contract: exact top-k over the first
+``n_valid`` rows of ``db``, float32 accumulation, ties to the lowest row
+index, (values, indices) with squared-L2 distances ascending or inner
+products descending, and index -1 with inf / -inf in slots no live row
+fills (also when ``k`` exceeds ``n_valid`` inside a padded buffer).
+
+- On a CUDA tensor it launches ``csrc/flat_scan.cu`` (built on first use by
+  ``_build``) or raises. The tile sizes are the kernel's own, so the TPU
+  version's ``tile_q`` / ``tile_n`` / ``interpret`` arguments are gone. Any
+  width D fits (wide rows are staged in column chunks); k is at most
+  ``KMAX`` (``check_k`` raises ``ValueError`` above it).
+- On a CPU tensor it runs ``flat_search_reference``, the same contract in
+  plain torch (``ops/distance.exact_search``).
+
+``flat_search.launches`` counts kernel launches (one per call that reaches
+the card), so a run can show that its searches went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from .. import _build
+from .distance import NEG_INF, as_tensor, exact_search, finish_topk, sqnorms
+
+# stage-1 blocks to aim for, in waves of what the card holds at once: with
+# several waves the last, partly filled one costs little
+_WAVES = 8
+# largest k the kernel's lists hold: csrc/flat_scan.cu's KMAX (load() checks
+# that the two agree)
+KMAX = 64
+# column chunks tried, widest first, when a whole row does not fit a tile
+_CHUNK_COLS = (1024, 512, 256, 128)
+
+
+def check_k(k: int) -> None:
+    """Raise ``ValueError`` for a k the kernel cannot serve."""
+    if k > KMAX:
+        raise ValueError(
+            f"k={k} exceeds the CUDA flat scan's limit KMAX={KMAX}")
+
+
+def flat_search_reference(
+    q: torch.Tensor,
+    db: torch.Tensor,
+    k: int,
+    *,
+    metric: str = "L2",
+    db_sq: Optional[torch.Tensor] = None,
+    n_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of the kernel, on any device."""
+    return exact_search(q, db, k, metric=metric, db_sq=db_sq, n_valid=n_valid)
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, and bind its entry
+    points."""
+    lib = _build.load("flat_scan")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rfe_flat_scan.argtypes = [vp] * 7 + [ci] * 11 + [vp]
+    lib.rfe_flat_scan.restype = ci
+    lib.rfe_flat_scan_kmax.argtypes = []
+    lib.rfe_flat_scan_kmax.restype = ci
+    lib.rfe_flat_scan_tile_rows.argtypes = []
+    lib.rfe_flat_scan_tile_rows.restype = ci
+    lib.rfe_flat_scan_block_queries.argtypes = [ci]
+    lib.rfe_flat_scan_block_queries.restype = ci
+    lib.rfe_flat_scan_blocks_per_sm.argtypes = [ci] * 6
+    lib.rfe_flat_scan_blocks_per_sm.restype = ci
+    lib.rfe_cuda_error_string.argtypes = [ci]
+    lib.rfe_cuda_error_string.restype = ctypes.c_char_p
+    if lib.rfe_flat_scan_kmax() != KMAX:
+        raise RuntimeError(
+            f"flat_scan.cu has KMAX={lib.rfe_flat_scan_kmax()}, "
+            f"ops/flat_scan.py has {KMAX}")
+    return lib
+
+
+def chunk_widths(d: int) -> Tuple[int, ...]:
+    """Column counts the kernel may stage at once for width ``d``, widest
+    first: the whole row (padded to 4), then the narrower chunks."""
+    d4 = -(-d // 4) * 4
+    return (d4,) + tuple(c for c in _CHUNK_COLS if c < d4)
+
+
+def plan_splits(nq: int, n_rows: int, block_queries: int, tile_rows: int,
+                capacity: int) -> Tuple[int, int]:
+    """(rows_per_split, n_splits) for stage 1. Q tiles alone give one block
+    at Q = 1, so the database is split too, aiming at ``_WAVES`` times the
+    ``capacity`` (blocks the card holds at once), with every split a whole
+    number of tiles and none empty."""
+    q_blocks = -(-nq // block_queries)
+    n_tiles = -(-n_rows // tile_rows)
+    want = max(1, -(-_WAVES * capacity // q_blocks))
+    tiles_per_split = -(-n_tiles // want)
+    n_splits = -(-n_tiles // tiles_per_split)
+    return tiles_per_split * tile_rows, n_splits
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_shape(device_index: int, d: int, k: int, is_l2: bool,
+                  is_bf16: bool, four_per_warp: bool) -> Tuple[int, int, int]:
+    """(queries per warp, columns per chunk, blocks the card holds at
+    once) for a shape: the widest chunk that fits, four queries per warp
+    where asked and that fits too."""
+    lib = load()
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    for dc in chunk_widths(d):
+        for qw in ((4, 1) if four_per_warp else (1,)):
+            per_sm = lib.rfe_flat_scan_blocks_per_sm(d, k, is_l2, is_bf16, qw, dc)
+            if per_sm > 0:
+                return qw, dc, per_sm * sms
+    raise RuntimeError(f"no flat-scan launch shape fits dim {d}, k={k}")
+
+
+def _kernel_search(q, db, db_sq, n_rows: int, k: int, metric: str):
+    lib = load()
+    nq, d = q.shape
+    index = db.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    # four queries per warp once a block of one-query warps would be full
+    qw, dc, capacity = _launch_shape(
+        index, d, k, metric == "L2", db.dtype == torch.bfloat16,
+        nq > lib.rfe_flat_scan_block_queries(1))
+    rows_per_split, n_splits = plan_splits(
+        nq, n_rows, lib.rfe_flat_scan_block_queries(qw),
+        lib.rfe_flat_scan_tile_rows(), capacity)
+    is_bf16 = db.dtype == torch.bfloat16
+    width = 8 if is_bf16 else 4
+    vec = int(d % width == 0 and db.data_ptr() % 16 == 0)
+    dev = db.device
+    part_v = torch.empty((nq, n_splits, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((nq, n_splits, k), dtype=torch.int32, device=dev)
+    out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    err = lib.rfe_flat_scan(
+        q.data_ptr(), db.data_ptr(), db_sq.data_ptr(),
+        part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(),
+        nq, n_rows, d, k, int(metric == "L2"), int(is_bf16), qw, dc,
+        rows_per_split, n_splits, vec,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            "flat_scan kernel launch failed: "
+            + lib.rfe_cuda_error_string(err).decode())
+    flat_search.launches += 1
+    return out_v, out_i
+
+
+def flat_search(
+    q,
+    db,
+    k: int,
+    *,
+    metric: str = "L2",
+    db_sq=None,
+    n_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact fused top-k scan; same contract as ``ops.distance.exact_search``.
+
+    ``q`` (Q, D) and ``db`` (N, D) share a dtype (float32 or bfloat16);
+    ``db_sq`` is the float32 row squared norms (computed if omitted);
+    rows >= ``n_valid`` are padding.
+    """
+    if metric not in ("L2", "IP"):
+        raise ValueError(f"metric must be 'L2' or 'IP', got {metric!r}")
+    db = as_tensor(db)
+    q = as_tensor(q, device=db.device)
+    if db.device.type != "cuda":
+        return flat_search_reference(q, db, k, metric=metric, db_sq=db_sq,
+                                     n_valid=n_valid)
+    check_k(k)
+    if q.dtype != db.dtype or db.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(
+            f"flat_search takes float32 or bfloat16 q and db of one dtype, "
+            f"got {q.dtype} and {db.dtype}")
+    n, d = db.shape
+    nq = q.shape[0]
+    if q.shape[1] != d:
+        raise ValueError(f"query dim {q.shape[1]} != database dim {d}")
+    q, db = q.contiguous(), db.contiguous()
+    if db_sq is None:
+        db_sq = sqnorms(db)
+    db_sq = as_tensor(db_sq, db.device, torch.float32).contiguous()
+    n_rows = n if n_valid is None else max(0, min(int(n_valid), n))
+    k_eff = min(k, n)
+
+    if nq == 0 or n_rows == 0 or k_eff == 0:
+        best_v = torch.full((nq, k_eff), NEG_INF, device=db.device)
+        best_i = torch.full((nq, k_eff), -1, dtype=torch.int32,
+                            device=db.device)
+    else:
+        best_v, best_i = _kernel_search(q, db, db_sq, n_rows, k_eff, metric)
+    # the kernel leaves NEG_INF / -1 in slots no live row filled
+    return finish_topk(best_v, best_i, q, k, metric)
+
+
+flat_search.launches = 0

@@ -1,0 +1,177 @@
+"""MiniLM port (models/minilm, convert, tokenizer, encoder) vs the Flax package.
+
+The JAX package's own seeded parameters are moved across with
+``load_flax_params`` (or through ``encoder_params.npz``), and the same token
+ids go through both encoders on the CPU. Tolerance: pooled float32
+embeddings atol 1e-4 (f32 on both sides; sums and LayerNorm statistics are
+taken in different orders). The tokenizer copy must give identical ids.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rag_faiss_embedding_tpu.models import EmbeddingPipeline as JPipe
+from rag_faiss_embedding_tpu.models import MiniLMConfig as JConfig
+from rag_faiss_embedding_tpu.models import MiniLMEncoder as JEncoder
+from rag_faiss_embedding_tpu.models import convert as jconvert
+from rag_faiss_embedding_tpu.models.tokenizer import WordPieceTokenizer as JTok
+from rag_faiss_embedding_tpu_torch.models import EmbeddingPipeline as TPipe
+from rag_faiss_embedding_tpu_torch.models import MiniLMConfig, MiniLMEncoder
+from rag_faiss_embedding_tpu_torch.models import convert as tconvert
+from rag_faiss_embedding_tpu_torch.models.tokenizer import WordPieceTokenizer as TTok
+
+ATOL = 1e-4
+WIDTHS = dict(vocab_size=2048, hidden_size=32, num_layers=2, num_heads=4,
+              intermediate_size=64, max_position_embeddings=128)
+SMALL = MiniLMConfig(**WIDTHS)
+CORPUS = [
+    "jax compiles numerical programs for tpus",
+    "faiss performs similarity search over dense vectors",
+    "sqlite is a small embedded relational database",
+    "transformers encode sentences into embeddings, café naïve résumé",
+] * 3
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return jconvert.deterministic_params(JConfig(**WIDTHS), seed=0)
+
+
+@pytest.fixture(scope="module")
+def torch_model(jax_params):
+    model = MiniLMEncoder(SMALL)
+    model.load_state_dict(tconvert.load_flax_params(jax_params))
+    return model.eval()
+
+
+def _ids(rng, b=3, t=12, pad=4):
+    ids = rng.integers(5, WIDTHS["vocab_size"], size=(b, t)).astype(np.int32)
+    mask = np.ones((b, t), np.int32)
+    if pad:  # the last row is padded
+        mask[-1, t - pad:] = 0
+        ids[-1, t - pad:] = 0
+    return ids, mask
+
+
+@pytest.mark.parametrize("pooling", ["cls", "mean"])
+def test_encoder_matches_flax(rng, jax_params, torch_model, pooling):
+    ids, mask = _ids(rng)
+    ref = JEncoder(JConfig(**WIDTHS)).apply(
+        {"params": jax_params}, jnp.asarray(ids), jnp.asarray(mask),
+        pooling=pooling)
+    with torch.no_grad():
+        out = torch_model(torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                          pooling=pooling)
+    assert out.shape == (3, 32) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_padding_invariance(rng, torch_model):
+    ids, mask = _ids(rng, b=1, pad=0)
+    ids_p = np.pad(ids, ((0, 0), (0, 20)))
+    mask_p = np.pad(mask, ((0, 0), (0, 20)))
+    with torch.no_grad():
+        for pooling in ("cls", "mean"):
+            short = torch_model(torch.from_numpy(ids).long(),
+                                torch.from_numpy(mask), pooling=pooling)
+            long = torch_model(torch.from_numpy(ids_p).long(),
+                               torch.from_numpy(mask_p), pooling=pooling)
+            np.testing.assert_allclose(short.numpy(), long.numpy(), atol=2e-5)
+
+
+def test_param_files_cross_load(tmp_path, jax_params):
+    """encoder_params.npz from either package loads in the other, and the
+    state dict converts back to the Flax layout losslessly."""
+    jconvert.export_params(jax_params, tmp_path / "j.npz")
+    tree = tconvert.import_params(tmp_path / "j.npz")
+    assert tconvert.infer_config_from_params(tree) == SMALL
+    sd = tconvert.load_flax_params(tree)
+    back = tconvert.to_flax_params(sd, SMALL)
+    tconvert.export_params(back, tmp_path / "t.npz")
+    with np.load(tmp_path / "j.npz") as a, np.load(tmp_path / "t.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            np.testing.assert_array_equal(a[key], b[key])
+    jtree = jconvert.import_params(tmp_path / "t.npz")
+    assert jconvert.infer_config_from_params(jtree) == JConfig(**WIDTHS)
+
+
+def test_deterministic_params_shapes_match_flax(jax_params):
+    ours = tconvert.deterministic_params(SMALL, seed=0)
+    again = tconvert.deterministic_params(SMALL, seed=0)
+    flat = lambda t, p="": (
+        {k2: v2 for k, v in t.items() for k2, v2 in flat(v, f"{p}/{k}").items()}
+        if isinstance(t, dict) else {p: np.asarray(t)})
+    a, b, c = flat(ours), flat(jax_params), flat(again)
+    assert {k: v.shape for k, v in a.items()} == {k: v.shape for k, v in b.items()}
+    for key in a:
+        np.testing.assert_array_equal(a[key], c[key])  # seeded: reproducible
+
+
+def test_tokenizer_copy_matches_jax(tmp_path):
+    jtok = JTok.train(CORPUS, vocab_size=200)
+    jtok.save(tmp_path / "vocab.txt")
+    ttok = TTok.from_vocab_file(tmp_path / "vocab.txt")
+    assert ttok.vocab == jtok.vocab
+    texts = CORPUS[:4] + ["unseen wordpieces: tpuification, résumé!"]
+    for native in (False, True):
+        if native:
+            jtok.enable_native()
+            ttok.enable_native()
+        for text in texts:
+            assert ttok.encode(text, 64) == jtok.encode(text, 64)
+        ti, tm = ttok.encode_batch(texts, 64)
+        ji, jm = jtok.encode_batch(texts, 64)
+        np.testing.assert_array_equal(ti, ji)
+        np.testing.assert_array_equal(tm, jm)
+    assert ttok.decode(ti[0]) == jtok.decode(ji[0])
+
+
+@pytest.mark.parametrize("pooling,normalize", [("cls", False), ("mean", True)])
+def test_pipeline_matches_jax_on_shared_files(tmp_path, jax_params, pooling,
+                                              normalize):
+    """Both pipelines, pointed at one vocab.txt and one encoder_params.npz,
+    embed the same texts alike (a short last batch and sequence buckets
+    included)."""
+    JTok.train(CORPUS, vocab_size=200).save(tmp_path / "vocab.txt")
+    jconvert.export_params(jax_params, tmp_path / "encoder_params.npz")
+    kw = dict(model_name="offline-test", pooling=pooling, normalize=normalize,
+              max_seq_length=64, vocab_path=tmp_path / "vocab.txt",
+              params_path=tmp_path / "encoder_params.npz")
+    jp, tp = JPipe(**kw), TPipe(device="cpu", **kw)
+    assert tp.cfg == SMALL and tp.tokenizer.vocab == jp.tokenizer.vocab
+    je = jp.generate_embeddings(CORPUS, batch_size=4)
+    te = tp.generate_embeddings(CORPUS, batch_size=4)
+    assert te.shape == (len(CORPUS), 32) and te.dtype == np.float32
+    np.testing.assert_allclose(te, je, atol=ATOL)
+    np.testing.assert_allclose(tp.embed_query(CORPUS[1]), je[1], atol=ATOL)
+
+
+def test_bf16_compute_is_not_ported():
+    with pytest.raises(NotImplementedError):
+        MiniLMEncoder(MiniLMConfig(**WIDTHS, dtype="bfloat16"))
+
+
+def test_hf_bert_checkpoint_converts(rng):
+    """A (random-init) HF ``BertModel`` converted by the port's
+    ``convert_bert_state_dict`` gives the same CLS output as HF's own
+    forward: the checkpoint path ``load_pretrained`` takes when a local HF
+    cache exists."""
+    transformers = pytest.importorskip("transformers")
+    hf_cfg = transformers.BertConfig(
+        vocab_size=WIDTHS["vocab_size"], hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=64,
+        max_position_embeddings=128, hidden_act="gelu")
+    torch.manual_seed(0)
+    hf = transformers.BertModel(hf_cfg, add_pooling_layer=False).eval()
+    ours = MiniLMEncoder(SMALL).eval()
+    ours.load_state_dict(tconvert.load_flax_params(
+        tconvert.convert_bert_state_dict(hf.state_dict(), SMALL)))
+    ids, mask = _ids(rng)
+    ids_t, mask_t = torch.from_numpy(ids).long(), torch.from_numpy(mask)
+    with torch.no_grad():
+        ref = hf(input_ids=ids_t, attention_mask=mask_t).last_hidden_state[:, 0]
+        out = ours(ids_t, mask_t)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL)
