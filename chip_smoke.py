@@ -10,7 +10,7 @@ Phases, one JSON object per line:
 1. env: torch / CUDA versions and the card (``nvidia-smi``'s name and power
    limit, also printed raw on the line after it).
 2. build: ``nvcc`` builds ``rag_faiss_embedding_tpu_torch/csrc/flat_scan.cu``
-   for sm_90a.
+   and ``csrc/union_scan.cu`` for sm_90a, both at once.
 3. kernel: the flat-scan kernel against its plain torch version on the same
    CUDA tensors, over a grid of metrics, dtypes, Q, N, D and k, plus edge
    cases, rows wider than a shared-memory tile, and the 1,048,576 x 384
@@ -26,14 +26,30 @@ Phases, one JSON object per line:
    stages (tokenize, embed, scan, SQLite), a ``torch.profiler`` trace of 8
    requests (device busy time per request, by kernel, and the device's idle
    share), and the encoder's device time at 1, 16 and 32 rows.
+6. ivf_kernel: 1,048,576 x 384 rows of bench.py's distribution (8,192
+   Gaussian modes, rows = mode + 0.7 noise, queries = a row + 0.3 noise),
+   made on the card from a seeded generator, in ``IVFFlatIndex(384,
+   nlist=8192, dtype="bfloat16", train_iters=10, balance="reassign")``.
+   Searches at Q = 1 and Q = 1,024, k = 10, at the library's default
+   dispatch and at nprobe 16, through union-scan variants 1 and 2 and the
+   plain chunk body; recall@10 of each against the exact float32 flat top-10
+   (the port's ``FlatIndex``); each kernel against ``union_scan_reference``
+   on the same card tensors at those shapes, CUDA-event times of both; then
+   removed rows under variant 2 and k past the candidates.
+7. ivf_slice: ``RAGManager(index_kind="ivf", ivf_nlist=64)`` over the same
+   4,096 documents as the slice phase, the same requests, save and reload,
+   checked against the saved index searched on the CPU through the kernel's
+   plain version; and its trace (as phase 5).
 
-Then a ``{"kernels": [...]}`` line (launch counts from the slice's run) and,
-last, ``{"ok": true, "device": {...}}``. Any failed check raises, so the
-script exits non-zero without the last line. It needs no network and no
-JAX; it exits non-zero where no CUDA device is present or the port's
-package is not beside it.
+Then a ``{"kernels": [...]}`` line (launch counts from each kernel's path:
+the flat scan's from the slice, union-scan variant 1's from the IVF slice,
+variant 2's from the IVF kernel phase) and, last, ``{"ok": true, "device":
+{...}}``. Any failed check raises, so the script exits non-zero without the
+last line. It needs no network and no JAX; it exits non-zero where no CUDA
+device is present or the port's package is not beside it.
 """
 
+import concurrent.futures
 import dataclasses
 import html
 import json
@@ -48,6 +64,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/flat_scan.cu"
 KERNEL_REPLACES = "rag_faiss_embedding_tpu/ops/pallas_scan.py:80"
+UNION_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/union_scan.cu"
+UNION_REPLACES = {1: "rag_faiss_embedding_tpu/ops/pallas_ivf.py:182",
+                  2: "rag_faiss_embedding_tpu/ops/pallas_ivf.py:100"}
+IVF_N, IVF_DIM, IVF_MODES, IVF_NLIST, IVF_Q = 1 << 20, 384, 8192, 8192, 1024
+RECALL_MIN, RECALL_SLACK = 0.95, 0.005
 N_DOCS = 4096
 SEED = 0
 # Tolerances of kernel vs plain: both accumulate in float32 in different
@@ -221,6 +242,21 @@ def corpus_documents(n_docs: int, seed: int):
     return docs
 
 
+def slice_requests(docs):
+    """The slice's requests: 8 documents' texts (their own doc is the
+    expected top hit) and a 16-query batch."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    picks = [0, 3] + sorted(int(i) for i in rng.choice(
+        np.arange(5, N_DOCS), size=6, replace=False))
+    queries = [docs[i]["content"] for i in picks]
+    batch_queries = [docs[int(i)]["content"]
+                     for i in rng.choice(N_DOCS, size=15, replace=False)]
+    batch_queries.append("how do sentence encoders pool token states")
+    return picks, queries, batch_queries
+
+
 def slice_phase(torch, F, workdir: Path):
     import numpy as np
 
@@ -234,13 +270,7 @@ def slice_phase(torch, F, workdir: Path):
     cuda = torch.device("cuda")
     docs = corpus_documents(N_DOCS, SEED)
     cfg = Config(base_dir=workdir, model_name="chip-smoke-random-init")
-    rng = np.random.default_rng(SEED + 1)
-    picks = [0, 3] + sorted(int(i) for i in rng.choice(
-        np.arange(5, N_DOCS), size=6, replace=False))
-    queries = [docs[i]["content"] for i in picks]
-    batch_queries = [docs[int(i)]["content"]
-                     for i in rng.choice(N_DOCS, size=15, replace=False)]
-    batch_queries.append("how do sentence encoders pool token states")
+    picks, queries, batch_queries = slice_requests(docs)
 
     F.flat_search.launches = 0  # count the main path's launches only
     t0 = time.perf_counter()
@@ -428,12 +458,363 @@ def trace_phase(torch, engine, queries, batch_queries):
         "stage_ms_median": {k: statistics.median(v) for k, v in stages.items()},
         "traced_requests": n, "traced_ms_per_request": traced_ms / n,
         "device_busy_ms_per_request": busy_ms / n if on_card else None,
+        "device_ops_per_request": len(on_card) / n,
         # busy time against the untraced median; the traced wall is longer
         "idle_share": 1 - busy_ms / n / wall_ms if on_card else None,
         "idle_share_traced": 1 - busy_ms / traced_ms if on_card else None,
         "device_ms_per_request_by_kernel": [[name[:70], us / 1e3 / n] for name, us in top],
         "encoder_seq_bucket": int(ids.shape[1]),
         "encoder_ms_by_rows": encoder_ms,
+    }
+
+
+# ------------------------------------------------------------------ phase 6
+def host_ms(torch, fn, reps: int) -> float:
+    """Median host-clock time of ``fn`` ending in a synchronize, in ms."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def union_args(S, idx, q, k: int, variant: int, nprobe=None):
+    """The union-scan call ``idx.search(q, k, nprobe)`` makes on the kernel
+    route (same coarse stage, union and padding), and its dispatch."""
+    saved, idx.nprobe = idx.nprobe, nprobe or idx.nprobe
+    disp = idx.resolved_dispatch(q.shape[0], k)
+    idx.nprobe = saved
+    if disp["backend"] != "pallas" or disp["interpret"]:
+        raise AssertionError(f"the index does not dispatch the kernel: {disp}")
+    _, qp, u_all = S._coarse_union(
+        q.float(), idx._cent_store, idx._cent_sq, nprobe=disp["nprobe"],
+        metric=idx.metric, union_cap=disp["union_cap"], qc=disp["qc"],
+        union_mode=disp["union_mode"])
+    args = S.union_scan_args(qp, u_all, idx._sorted_vecs, idx._sorted_sq,
+                             idx._sorted_ids, k=k, window=idx._window,
+                             metric=idx.metric, pallas_cap=idx.pallas_cap,
+                             pallas_variant=variant)
+    return args, disp
+
+
+def slot_of_ids(torch, idx):
+    """Block slot of every live row id of an IVF index."""
+    ids = idx._sorted_ids
+    live = torch.nonzero(ids >= 0).flatten()
+    slot_of = torch.full((idx.ntotal,), -1, dtype=torch.long, device=ids.device)
+    slot_of[ids[live].long()] = live
+    return slot_of
+
+
+def union_check(torch, U, idx, args, k: int):
+    """One union-scan kernel call against its plain version on the same card
+    tensors, both decoded to (scores, ids); returns (max_abs_err, ids that
+    differ). Scores agree within rtol x (max ||q||^2 + max ||x||^2) + rtol x
+    |score| plus two packing quanta (2^(nbits-22) x |score|: one float32 ulp
+    of difference can move a truncated value by one quantum); missing slots
+    agree; every kernel id carries its own float64 score, so ids differ only
+    at near-ties."""
+    window = args["window"]
+
+    def decode(out):
+        if args["ktop"]:
+            return U.decode_selected(out[0], out[1], args["u_all"],
+                                     args["sorted_ids"], window=window, k=k)
+        return U.decode_topk(out, args["u_all"], args["sorted_ids"],
+                             window=window, k=k)
+
+    kv, ki = decode(U.union_scan(**args))
+    torch.cuda.synchronize()
+    pv, pi = decode(U.union_scan_reference(**args))
+    q = args["qs"].reshape(kv.shape[0], -1).double()
+    rtol = RTOL["bfloat16" if args["qs"].dtype == torch.bfloat16 else "float32"]
+    sq = args["sorted_sq"]
+    atol = rtol * float((q * q).sum(1).max() + sq[args["sorted_ids"] >= 0].max())
+    quantum = 2.0 ** (U.packing_bits(args["u_all"].shape[1]) - 22)
+    if not torch.equal(ki >= 0, pi >= 0):
+        raise AssertionError("kernel and plain union scans fill different slots")
+    ok = ki >= 0
+    diff = (kv - pv).abs()[ok]
+    err = float(diff.max()) if ok.any() else 0.0
+    if not bool((diff <= atol + (rtol + quantum) * pv.abs()[ok]).all()):
+        raise AssertionError(f"union-scan scores differ by {err}")
+    slots = slot_of_ids(torch, idx)[ki.clamp_min(0).long()]
+    x = idx._sorted_vecs[slots].double()
+    true = 2.0 * (q[:, None, :] * x).sum(-1) - sq[slots].double()
+    if not bool(((true - kv.double()).abs()[ok]
+                 <= atol + (rtol + quantum) * true.abs()[ok]).all()):
+        raise AssertionError("union-scan ids do not carry their scores")
+    return err, int((ki != pi).sum())
+
+
+def recall_at(ids, truth) -> float:
+    """Mean share of each row's true top-k found in ``ids``."""
+    hit = (ids[:, :, None].long() == truth[:, None, :].long()).any(-1)
+    return float(hit.float().sum(1).mean() / truth.shape[1])
+
+
+def search_profile(torch, idx, q, reps: int) -> dict:
+    """``torch.profiler`` over ``reps`` warm ``idx.search(q, 10)`` calls:
+    traced wall and device busy time per search, the idle share, and the
+    device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    idx.search(q, 10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            idx.search(q, 10)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / reps
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms, by_name = device_busy_ms(on_card)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"traced_ms_per_search": wall_ms, "device_busy_ms_per_search": busy_ms / reps,
+            "device_ops_per_search": len(on_card) / reps,
+            "idle_share_traced": 1 - busy_ms / reps / wall_ms,
+            "device_ms_per_search_by_kernel": [[n[:70], us / 1e3 / reps] for n, us in top]}
+
+
+IVF_ROUTES = (("union_scan v1", "auto", 1), ("union_scan v2", "auto", 2),
+              ("plain chunk body", "xla", 1))
+
+
+def ivf_kernel_phase(torch):
+    from rag_faiss_embedding_tpu_torch.index import FlatIndex, IVFFlatIndex
+    from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
+    from rag_faiss_embedding_tpu_torch.ops import union_scan as U
+
+    cuda = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    randn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    centers = randn(IVF_MODES, IVF_DIM)
+    db = centers[torch.randint(0, IVF_MODES, (IVF_N,), generator=g, device=cuda)]
+    db += 0.7 * randn(IVF_N, IVF_DIM)
+    queries = db[torch.randint(0, IVF_N, (IVF_Q,), generator=g, device=cuda)]
+    queries += 0.3 * randn(IVF_Q, IVF_DIM)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    idx = IVFFlatIndex(IVF_DIM, nlist=IVF_NLIST, dtype="bfloat16", train_iters=10,
+                       balance="reassign", device=cuda)
+    idx.build(db)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    flat = FlatIndex(IVF_DIM, capacity=IVF_N, device=cuda)
+    flat.add(db)
+    _, truth = flat.search(queries, 10)  # exact float32 top-10
+    del flat, db
+    torch.cuda.empty_cache()
+    single = queries[:64]
+
+    U.union_scan.launches = 0  # count the path's launches only
+    U.union_scan.variant_launches = {1: 0, 2: 0}
+    routes = []
+    for nprobe in (None, 16):
+        for name, backend, variant in IVF_ROUTES:
+            idx.backend, idx.pallas_variant = backend, variant
+            ids1 = torch.cat([idx.search(single[i:i + 1], 10, nprobe=nprobe)[1]
+                              for i in range(len(single))])
+            _, ids = idx.search(queries, 10, nprobe=nprobe)
+            routes.append({
+                "route": name, "nprobe": nprobe or idx.nprobe,
+                "recall@10_q1": recall_at(ids1, truth[:len(single)]),
+                "recall@10_q1024": recall_at(ids, truth),
+                "search_ms_q1": host_ms(torch, lambda: idx.search(single[:1], 10, nprobe=nprobe), 10),
+                "search_ms_q1024": host_ms(torch, lambda: idx.search(queries, 10, nprobe=nprobe), 5),
+            })
+    torch.cuda.synchronize()
+    launches = dict(U.union_scan.variant_launches)
+    for i in range(0, len(routes), 3):
+        plain = routes[i + 2]
+        for r in routes[i:i + 2]:
+            for key in ("recall@10_q1", "recall@10_q1024"):
+                if r[key] < RECALL_MIN or r[key] < plain[key] - RECALL_SLACK:
+                    raise AssertionError(f"{r['route']} nprobe {r['nprobe']} {key} "
+                                         f"{r[key]} (plain {plain[key]})")
+
+    # where a search's time goes: host wall vs device busy, by kernel
+    idx.backend, idx.pallas_variant = "auto", 1
+    profiles = {f"Q={q.shape[0]}": search_profile(torch, idx, q, reps)
+                for q, reps in ((single[:1], 8), (queries, 3))}
+
+    # each kernel against its plain version at the path's shapes
+    cases, max_err = [], {1: 0.0, 2: 0.0}
+    for nprobe in (None, 16):
+        for nq in (1, IVF_Q):
+            for variant in (1, 2):
+                args, disp = union_args(S, idx, queries[:nq], 10, variant, nprobe)
+                err, mism = union_check(torch, U, idx, args, 10)
+                max_err[variant] = max(max_err[variant], err)
+                cases.append({
+                    "variant": variant, "Q": nq, "nprobe": disp["nprobe"],
+                    "union_mode": disp["union_mode"], "chunks": args["qs"].shape[0],
+                    "qc": args["qs"].shape[1], "U": args["u_all"].shape[1],
+                    "window": args["window"], "ktop": args["ktop"],
+                    "max_abs_err": err, "id_mismatch": mism,
+                    "ms": cuda_ms(torch, lambda: U.union_scan(**args)),
+                    "plain_ms": cuda_ms(torch, lambda: U.union_scan_reference(**args)),
+                })
+
+    # edges: removed rows stay out under variant 2; k past the candidates
+    idx.pallas_variant = 2
+    _, before = idx.search(queries[:8], 3)
+    kill = torch.unique(before[:, 0])
+    idx.remove_ids(kill.cpu().numpy())
+    _, after = idx.search(queries[:8], 10)
+    if bool(torch.isin(after, kill).any()):
+        raise AssertionError("a removed row came back under variant 2")
+    # the bins hold cap x window candidates; the spill tier adds its rows
+    n_cand = idx.pallas_cap * idx._window + idx._pending.ntotal
+    wide_v, wide = idx.search(queries[:4], n_cand + 88, nprobe=1)
+    if not (bool((wide[:, n_cand:] == -1).all()) and bool((wide[:, 0] >= 0).all())
+            and bool(torch.isinf(wide_v[:, n_cand:]).all())):
+        raise AssertionError("k past the candidates must pad with -1 / inf")
+    return {
+        "phase": "ivf_kernel", "N": IVF_N, "D": IVF_DIM, "nlist": idx.nlist,
+        "dtype": "bfloat16", "build_s": build_s,
+        "build_stats": {k: v for k, v in idx.build_stats.items() if k != "train"},
+        "train_stats": idx.build_stats.get("train"),
+        "window": idx._window, "spill_rows": idx._n_spill,
+        "resolved_dispatch_q1": idx.resolved_dispatch(1),
+        "resolved_dispatch_q1024": idx.resolved_dispatch(IVF_Q),
+        "routes": routes, "path_launches": launches, "kernel_cases": cases,
+        "search_profile_v1": profiles,
+        "removed": int(kill.numel()), "k_past_candidates": n_cand + 88,
+    }, max_err
+
+
+# ------------------------------------------------------------------ phase 7
+def ivf_slice_phase(torch, workdir: Path):
+    import numpy as np
+
+    from rag_faiss_embedding_tpu.core.config import Config
+    from rag_faiss_embedding_tpu_torch.index import IVFFlatIndex
+    from rag_faiss_embedding_tpu_torch.models import convert
+    from rag_faiss_embedding_tpu_torch.models.generator import AnswerGenerator
+    from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
+    from rag_faiss_embedding_tpu_torch.ops import union_scan as U
+    from rag_faiss_embedding_tpu_torch.rag import QueryEngine, RAGManager
+
+    cuda = torch.device("cuda")
+    docs = corpus_documents(N_DOCS, SEED)
+    cfg = Config(base_dir=workdir, model_name="chip-smoke-random-init",
+                 index_kind="ivf", ivf_nlist=64)
+    picks, queries, batch_queries = slice_requests(docs)
+
+    U.union_scan.launches = 0  # count the main path's launches only
+    U.union_scan.variant_launches = {1: 0, 2: 0}
+    t0 = time.perf_counter()
+    manager = RAGManager(config=cfg, device=cuda)
+    n = manager.initialize_database(docs)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    engine = QueryEngine(manager.db, manager.vector_store, manager.embedder,
+                         generator=AnswerGenerator(backend="extractive"))
+    latencies, singles = [], []
+    for text in queries:
+        t = time.perf_counter()
+        singles.append(engine.search(text, top_k=5))
+        latencies.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    batch = engine.search_batch(batch_queries, top_k=5)
+    batch_ms = (time.perf_counter() - t) * 1e3
+    answer = engine.generate_response(batch_queries[-1], batch[-1])
+    manager.vector_store.save_index()
+    convert.export_params(
+        convert.to_flax_params(manager.embedder.model.state_dict(),
+                               manager.embedder.cfg),
+        cfg.data_dir / "encoder_params.npz")
+    reloaded = RAGManager(config=cfg, device=cuda)
+    engine2 = QueryEngine(reloaded.db, reloaded.vector_store, reloaded.embedder,
+                          generator=AnswerGenerator(backend="extractive"))
+    singles2 = [engine2.search(text, top_k=5) for text in queries]
+    torch.cuda.synchronize()
+    launches = U.union_scan.variant_launches[1]
+    n_searches = len(queries) * 2 + 1
+
+    # --- checks
+    index = manager.vector_store.index
+    if not isinstance(index, IVFFlatIndex) or not isinstance(
+            reloaded.vector_store.index, IVFFlatIndex):
+        raise AssertionError("the ivf manager did not build an IVFFlatIndex")
+    if n != N_DOCS or index.ntotal != N_DOCS:
+        raise AssertionError(f"ingested {n} of {N_DOCS} documents")
+    if any(not hits for hits in singles + singles2 + batch):
+        raise AssertionError("a request returned no documents")
+    self_hits = sum(hits[0]["url"] == docs[i]["url"] for hits, i in zip(singles, picks))
+    if self_hits < 7:
+        raise AssertionError(f"self-retrieval held for {self_hits} of 8")
+    if launches < n_searches:
+        raise AssertionError(f"union scan launched {launches} times for {n_searches} searches")
+    tensors = [index._sorted_vecs, index._sorted_sq, index._sorted_ids, index._cent_store,
+               index._cent_sq, index.centroids, index._pending._buf,
+               reloaded.vector_store.index._sorted_vecs]
+    if not all(t.is_cuda for t in tensors) or not all(
+            p.is_cuda for p in manager.embedder.model.parameters()):
+        raise AssertionError("an index or encoder tensor is off the card")
+    for a, b in zip(singles, singles2):
+        if not same_hits(a, b):
+            raise AssertionError("the reloaded manager answers differently")
+    if not answer:
+        raise AssertionError("no answer generated")
+
+    # the same saved index on the CPU, through the kernel's plain version
+    cpu_index = IVFFlatIndex.from_state_dict(index.state_dict(), device="cpu",
+                                             backend="pallas")
+    cpu_rows = torch.from_numpy(cpu_index.vectors())
+    card_emb = manager.embedder.generate_embeddings(queries)
+    card_v, card_i = index.search(card_emb, 5)
+    cpu_v, cpu_i = cpu_index.search(card_emb, 5)
+    _, top5_mismatch = assert_same_topk(
+        torch, torch.from_numpy(card_emb), cpu_rows, card_v.cpu(), card_i.cpu(),
+        cpu_v, cpu_i, "L2", RTOL["float32"])
+    batch_emb = manager.embedder.generate_embeddings(batch_queries)
+    cpu_bv, cpu_bi = cpu_index.search(batch_emb, 5)
+    row_of = {d: p for p, d in enumerate(manager.vector_store.doc_ids)}
+    hit_v = torch.tensor([[h["distance"] for h in hits] for hits in batch])
+    hit_i = torch.tensor([[row_of[h["id"]] for h in hits] for hits in batch],
+                         dtype=torch.int32)
+    _, batch_mismatch = assert_same_topk(
+        torch, torch.from_numpy(batch_emb), cpu_rows, hit_v, hit_i, cpu_bv, cpu_bi,
+        "L2", RTOL["float32"])
+
+    # the kernel against its plain version at the path's shapes
+    shapes, max_err = {}, 0.0
+    for emb in (card_emb[:1], batch_emb):
+        q = torch.from_numpy(emb).to(cuda)
+        args, disp = union_args(S, index, q, 5, 1)
+        err, mism = union_check(torch, U, index, args, 5)
+        max_err = max(max_err, err)
+        shapes[f"Q={q.shape[0]}"] = {
+            "chunks": args["qs"].shape[0], "qc": args["qs"].shape[1],
+            "U": args["u_all"].shape[1], "window": args["window"], "D": index.dim,
+            "k": 5, "nprobe": disp["nprobe"], "max_abs_err": err, "id_mismatch": mism,
+            "ms": cuda_ms(torch, lambda: U.union_scan(**args)),
+            "plain_ms": cuda_ms(torch, lambda: U.union_scan_reference(**args)),
+        }
+    trace = trace_phase(torch, engine, queries, batch_queries)
+    trace["phase"] = "ivf_trace"
+    manager.cleanup()
+    reloaded.cleanup()
+    return trace, {
+        "phase": "ivf_slice", "documents": n, "nlist": index.nlist,
+        "window": index._window, "spill_rows": index._n_spill,
+        "resolved_dispatch_q1": index.resolved_dispatch(1),
+        "ingest_s": ingest_s, "request_ms": latencies,
+        "request_ms_median": statistics.median(latencies),
+        "batch16_ms": batch_ms, "self_retrieval": f"{self_hits}/8",
+        "union_scan_v1_launches": launches, "searches": n_searches,
+        "top5_id_mismatch_vs_cpu": top5_mismatch,
+        "batch_top5_id_mismatch_vs_cpu": batch_mismatch,
+        "main_path_kernel_times": shapes, "max_abs_err": max_err,
+        "answer_chars": len(answer),
     }
 
 
@@ -457,12 +838,17 @@ def main() -> int:
 
     from rag_faiss_embedding_tpu_torch import _build
     from rag_faiss_embedding_tpu_torch.ops import flat_scan as F
+    from rag_faiss_embedding_tpu_torch.ops import union_scan as U
 
     t0 = time.perf_counter()
-    lib = _build.build("flat_scan")
-    F.load()  # loads the library and binds its entry points
-    emit({"phase": "build", "source": KERNEL_SOURCE, "library": str(lib.relative_to(ROOT)),
-          "nvcc_s": _build.build.seconds.get("flat_scan"),
+    names = ("flat_scan", "union_scan")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:  # one nvcc each
+        libs = dict(zip(names, pool.map(_build.build, names)))
+    F.load()  # load the libraries and bind their entry points
+    U.load()
+    emit({"phase": "build", "sources": [KERNEL_SOURCE, UNION_SOURCE],
+          "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
+          "nvcc_s": dict(_build.build.seconds),
           "build_and_load_s": time.perf_counter() - t0})
 
     cases, max_err = kernel_phase(torch, F)
@@ -474,6 +860,12 @@ def main() -> int:
         trace, sl = slice_phase(torch, F, Path(workdir))
     emit(sl)
     emit(trace)
+    ivf, union_err = ivf_kernel_phase(torch)
+    emit(ivf)
+    with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir:
+        ivf_trace, ivf_sl = ivf_slice_phase(torch, Path(workdir))
+    emit(ivf_sl)
+    emit(ivf_trace)
 
     loaded = [m for m in ("jax", "flax", "rag_faiss_embedding_tpu.ops") if m in sys.modules]
     if loaded:
@@ -486,6 +878,18 @@ def main() -> int:
                                       for v in sl["main_path_kernel_times"].values())),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
+    }, {
+        "name": "union_scan v1", "route": "cuda", "source": UNION_SOURCE,
+        "replaces": UNION_REPLACES[1], "launches": ivf_sl["union_scan_v1_launches"],
+        "max_abs_err": max(union_err[1], ivf_sl["max_abs_err"]),
+        "ms": ivf_sl["main_path_kernel_times"]["Q=1"]["ms"],
+        "plain_ms": ivf_sl["main_path_kernel_times"]["Q=1"]["plain_ms"],
+    }, {
+        "name": "union_scan v2", "route": "cuda", "source": UNION_SOURCE,
+        "replaces": UNION_REPLACES[2], "launches": ivf["path_launches"][2],
+        "max_abs_err": union_err[2],
+        "ms": ivf["kernel_cases"][1]["ms"],
+        "plain_ms": ivf["kernel_cases"][1]["plain_ms"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@ A second package beside ``rag_faiss_embedding_tpu`` (the JAX reference, which
 stays as it is). Module names and public APIs follow the JAX package, so each
 module here has its counterpart there:
 
-  ops/       plain torch distance + top-k (``distance``) and the flat-scan
-             kernel wrapper (``flat_scan``; CUDA source in ``csrc/``)
-  index/     FlatIndex, VectorStore, the npz codec
+  ops/       plain torch distance + top-k (``distance``), k-means
+             (``kmeans``), the fused IVF search (``ivf_scan``) and the kernel
+             wrappers (``flat_scan``, ``union_scan``; CUDA sources in
+             ``csrc/``)
+  index/     FlatIndex, IVFFlatIndex, VectorStore, the npz codec
   models/    MiniLM ``nn.Module``, Flax-param conversion, tokenizer,
              embedding pipeline, answer generator
   rag/       QueryEngine, RAGManager
@@ -28,6 +30,8 @@ import torch as _torch
 # float32 means float32 on the card: JAX runs f32 at Precision.HIGHEST.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+# bf16 products accumulate in float32, as JAX's preferred_element_type asks
+_torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __version__ = "0.1.0"
 

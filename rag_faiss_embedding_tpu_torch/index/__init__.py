@@ -1,2 +1,3 @@
 from .flat import FlatIndex
+from .ivf import IVFFlatIndex
 from .vector_store import VectorStore

@@ -9,7 +9,7 @@ ids without the sidecar, ``remove_doc_ids`` and ``allowed_doc_ids``
 filtering. The files are the JAX package's format: each package loads the
 other's.
 
-Only the "flat" index kind is ported; "ivf", "pq" and the sharded kinds
+The "flat" and "ivf" index kinds are ported; "pq" and the sharded kinds
 come with later slices. FAISS binary import comes with ``faiss_import``.
 """
 
@@ -25,12 +25,12 @@ import torch
 from rag_faiss_embedding_tpu.core.logging import get_logger
 
 from .flat import FlatIndex
+from .ivf import IVFFlatIndex
 
 logger = get_logger(__name__)
 
 # index kinds of the JAX package that this port does not load yet
 _LATER_KINDS = {
-    "ivf": "slice 2 (IVF)",
     "pq": "slice 4 (PQ)",
     "sharded_flat": "slice 6 (multi-GPU)",
     "sharded_ivf": "slice 6 (multi-GPU)",
@@ -44,7 +44,7 @@ class VectorStore:
         metric: str = "L2",
         index_path: str | Path = "data/index.tpu",
         dtype: str = "float32",
-        index: Optional[FlatIndex] = None,
+        index: Optional[FlatIndex | IVFFlatIndex] = None,
         selector: str = "exact",
         device: Optional[torch.device | str] = None,
     ):
@@ -163,13 +163,16 @@ class VectorStore:
         if kind in _LATER_KINDS:
             raise NotImplementedError(
                 f"index kind {kind!r} is not ported yet ({_LATER_KINDS[kind]})")
-        if kind != "flat":
+        if kind == "flat":
+            self.index = FlatIndex.from_state_dict(
+                {k: (v if k == "vectors" else v.item() if v.ndim == 0 else v)
+                 for k, v in state.items()},
+                device=self.device,
+            )
+        elif kind == "ivf":
+            self.index = IVFFlatIndex.from_state_dict(state, device=self.device)
+        else:
             raise ValueError(f"unknown index kind {kind!r}")
-        self.index = FlatIndex.from_state_dict(
-            {k: (v if k == "vectors" else v.item() if v.ndim == 0 else v)
-             for k, v in state.items()},
-            device=self.device,
-        )
         self.dimension = self.index.dim
         self.metric = self.index.metric
         mapping_path = Path(str(path) + ".mapping")

@@ -1,0 +1,358 @@
+"""Fused batched IVF search: coarse stage, chunk unions, union scan, spill.
+
+Counterpart of ``rag_faiss_embedding_tpu/ops/ivf_scan.py`` for dense float32
+/ bfloat16 storage, with the same steps and dispatch:
+
+1. coarse: one (Nq, nlist) float32 product for the whole batch (queries cast
+   to the centroids' dtype first, as JAX does);
+2. queries sorted by their best list (``minrank``: top-1 probe; ``chunkmax``:
+   argmax), padded with replicas of the last one to a multiple of ``qc``;
+3. per chunk of ``qc`` queries, a union of ``union_cap`` list ids:
+   ``minrank`` compacts the chunk's probes by min probe rank
+   (``_select_union``), ``chunkmax`` (nlist > 2048) ranks lists by the max
+   normalised coarse score any member query gives;
+4. the chunk stage: ``backend="pallas"`` runs the union-scan kernel
+   (``ops/union_scan.py``; its plain version on a CPU index) and decodes its
+   packed candidates; ``backend="xla"`` is the plain chunk body
+   (``_chunk_body``), a Python loop over chunks where JAX uses scan/vmap;
+5. the spill tier (window overflow + streaming adds) is scored once for the
+   whole batch and merged exactly, then scores become distances.
+
+Where JAX selects with ``lax.approx_max_k`` (the chunk body; the coarse stage
+past 2,048 lists), the port selects exactly: off the TPU ``approx_max_k`` is
+an exact top-k, so the CPU parity tests compare like with like. Selection
+ties go to the lowest index throughout (stable sorts / ``small_topk``).
+
+int8 storage, the bf16 shadow rerank and PQ codes are not ported yet: they
+raise ``NotImplementedError`` naming their slice.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional, Tuple
+
+import torch
+
+from .distance import NEG_INF, merge_topk, small_topk
+from .union_scan import (
+    decode_selected, decode_topk, kernel_eligible, pick_bb, union_scan,
+)
+
+_STEP_BYTES_BUDGET = 1 << 30
+_COARSE_APPROX_MIN_NLIST = 2048
+_RANK_INF = 1 << 30
+logger = logging.getLogger(__name__)
+
+
+def _not_ported(scales=None, shadow=None, pq=None) -> None:
+    if scales is not None or shadow is not None:
+        raise NotImplementedError(
+            "int8 IVF storage and the shadow rerank are not ported yet "
+            "(slice 3, the int8 tier)")
+    if pq is not None:
+        raise NotImplementedError("IVF-PQ is not ported yet (slice 4, the PQ tier)")
+
+
+def _topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k along the last axis, ties to the lowest index."""
+    if k <= 16:
+        return small_topk(x, k)
+    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k].to(torch.int32)
+
+
+def default_union_cap(nlist: int, nprobe: int) -> int:
+    """Union slots per chunk: at least every list of a small index, and
+    16 x nprobe (>= 64) for a large one."""
+    return min(nlist, max(64, 16 * nprobe))
+
+
+def pick_query_chunk(nprobe: int, window: int, dim: int, code_bytes: int,
+                     n_queries: int, union_cap: Optional[int] = None,
+                     nlist: Optional[int] = None) -> int:
+    """Query chunk size: the union budget capped at 256, halved while the
+    per-step intermediates (gathered rows + score matrix) exceed the step
+    budget, and no larger than the batch (>= 8)."""
+    if union_cap is None:
+        union_cap = default_union_cap(nlist or (1 << 30), nprobe)
+    rows = union_cap * window
+    qc = max(16, min(256, union_cap))
+    while qc > 8:
+        if rows * dim * code_bytes + qc * rows * 4 <= _STEP_BYTES_BUDGET:
+            break
+        qc //= 2
+    return max(8, min(qc, max(8, n_queries)))
+
+
+def query_chunk_recall_safe(qc: int, union_cap: int) -> bool:
+    """Whether a chunk can be served by its union: qc <= union_cap."""
+    return qc <= union_cap
+
+
+def resolve_fused_dispatch(*, nq: int, dim: int, nlist: int, window: int,
+                           code_bytes: int, quantized: bool, has_shadow: bool,
+                           has_pq: bool, has_filter: bool, nprobe: int,
+                           union_cap: Optional[int] = None,
+                           qc: Optional[int] = None, backend: str = "auto",
+                           platform: str = "cuda") -> dict:
+    """The (nprobe, union_cap, qc, backend, interpret) a fused search will
+    dispatch with, without running it. The JAX package's rule, with
+    ``platform == "cuda"`` where it has ``"tpu"``: on a CUDA index ``auto``
+    picks the union-scan kernel when eligible, padding qc to >= 16 (which
+    changes which queries share a union). A filter routes to the plain chunk
+    body. ``interpret`` is True where the kernel route runs its plain version
+    (``backend="pallas"`` on a CPU index)."""
+    nprobe = min(nprobe, nlist)
+    if union_cap is None:
+        union_cap = default_union_cap(nlist, nprobe)
+    if qc is None:
+        if has_pq:
+            qc = max(16, min(256, union_cap))
+        else:
+            qc = pick_query_chunk(nprobe, window, dim, code_bytes, nq,
+                                  union_cap=union_cap)
+    elif not query_chunk_recall_safe(qc, union_cap):
+        logger.warning(
+            "query chunk %d exceeds union_cap %d: the chunk union cannot "
+            "serve every query's probe lists and recall will collapse", qc,
+            union_cap)
+    qc = min(qc, max(8, nq))
+    interpret = False
+    if (has_filter or has_pq) and backend == "auto":
+        backend = "xla"
+    if backend != "xla":
+        qc_kernel = max(qc, 16)
+        eligible = kernel_eligible(
+            platform=platform, quantized=quantized, window=window, dim=dim,
+            qc=qc_kernel, shadow=has_shadow or None,
+            interpret=backend == "pallas")
+        if eligible:
+            qc = qc_kernel
+        if backend == "pallas" and not eligible:
+            raise ValueError(
+                "pallas backend needs full-precision storage, no shadow, "
+                f"window/dim multiples of 128, qc >= 16 (got window={window} "
+                f"dim={dim} qc={qc} quantized={quantized})")
+        backend = "pallas" if eligible else "xla"
+        interpret = backend == "pallas" and platform != "cuda"
+    return {"nprobe": nprobe, "union_cap": union_cap, "qc": qc,
+            "backend": backend, "interpret": interpret}
+
+
+def _select_union(probes: torch.Tensor, nlist: int, union_cap: int) -> torch.Tensor:
+    """Compact each chunk's (qc, nprobe) probe lists to ``union_cap`` unique
+    list ids ranked by min probe rank; unused slots hold the sentinel
+    ``nlist``; sorted ascending. ``probes`` is (steps, qc, nprobe)."""
+    steps, qcn, nprobe = probes.shape
+    ids = probes.reshape(steps, -1).long()
+    ranks = torch.arange(nprobe, device=probes.device).repeat(qcn)[None].expand(steps, -1)
+    # primary id, secondary rank: stable sort by rank, then by id
+    o1 = torch.sort(ranks, dim=1, stable=True).indices
+    ids1, ranks1 = ids.gather(1, o1), ranks.gather(1, o1)
+    o2 = torch.sort(ids1, dim=1, stable=True).indices
+    ids_s, ranks_s = ids1.gather(1, o2), ranks1.gather(1, o2)
+    first = torch.ones_like(ids_s, dtype=torch.bool)
+    first[:, 1:] = ids_s[:, 1:] != ids_s[:, :-1]
+    key = torch.where(first, ranks_s, torch.full_like(ranks_s, _RANK_INF))
+    take = min(union_cap, ids_s.shape[1])
+    ord2 = torch.sort(key, dim=1, stable=True).indices[:, :take]
+    u = torch.where(key.gather(1, ord2) < _RANK_INF, ids_s.gather(1, ord2),
+                    torch.full_like(ord2, nlist))
+    return torch.sort(u, dim=1).values.to(torch.int32)
+
+
+def _live_rows(rid, filt):
+    """Searchable rows: id >= 0 and, with a filter, allowed by it."""
+    live = rid >= 0
+    if filt is not None:
+        live = live & filt[rid.clamp_min(0).long()]
+    return live
+
+
+def _score_rows(qf, rows, rsq, rid, metric, filt=None):
+    """Exact internal scores (higher better) of queries vs rows: queries
+    cast to the storage dtype, products in float32."""
+    dots = qf.to(rows.dtype).float() @ rows.float().T
+    scores = 2.0 * dots - rsq[None, :] if metric == "L2" else dots
+    return scores.masked_fill(~_live_rows(rid, filt)[None, :], NEG_INF)
+
+
+def _chunk_body(q, u, codes, sorted_sq, sorted_ids, *, k: int, window: int,
+                metric: str, rerank_depth: int, filt=None):
+    """Search one query chunk against its union blocks (the plain chunk
+    body). Returns (values, ids) on the internal scale. JAX selects
+    ``max(k, rerank_depth)`` approximately, then the exact top k; the exact
+    top k of the exact top k_cand is the exact top k."""
+    d = q.shape[1]
+    ul = u.long()
+    rows = codes.view(-1, window, d)[ul].reshape(-1, d)
+    rid = sorted_ids.view(-1, window)[ul].reshape(-1)
+    rsq = sorted_sq.view(-1, window)[ul].reshape(-1)
+    scores = _score_rows(q, rows, rsq, rid, metric, filt=filt)
+    k_cand = min(max(k, rerank_depth), scores.shape[1])
+    best_v, pos = _topk(scores, min(k, k_cand))
+    return best_v, rid[pos.long()]
+
+
+def _coarse_union(qf, centroids, cent_sq, *, nprobe: int, metric: str,
+                  union_cap: int, qc: int, union_mode: str):
+    """Steps 1-3: (perm, permuted + padded queries, u_all (steps, U))."""
+    nlist = centroids.shape[0]
+    nq, d = qf.shape
+    cdots = qf.to(centroids.dtype).float() @ centroids.float().T
+    cscores = 2.0 * cdots - cent_sq[None, :] if metric == "L2" else cdots
+    pad = (-nq) % qc
+    if union_mode == "chunkmax" and nlist > _COARSE_APPROX_MIN_NLIST:
+        rel = cscores - cscores.max(dim=1, keepdim=True).values
+        perm = torch.sort(torch.argmax(cscores, dim=1), stable=True).indices
+        qp, rel_p = qf[perm], rel[perm]
+        if pad:
+            qp = torch.cat([qp, qp[-1:].expand(pad, d)])
+            rel_p = torch.cat([rel_p, rel_p[-1:].expand(pad, nlist)])
+        steps = qp.shape[0] // qc
+        chunk_rel = rel_p.view(steps, qc, nlist).max(dim=1).values
+        _, u_all = _topk(chunk_rel, min(union_cap, nlist))
+        u_all = torch.sort(u_all, dim=1).values.to(torch.int32)
+    else:
+        _, probes = _topk(cscores, nprobe)
+        perm = torch.sort(probes[:, 0], stable=True).indices
+        qp, pp = qf[perm], probes[perm]
+        if pad:
+            qp = torch.cat([qp, qp[-1:].expand(pad, d)])
+            pp = torch.cat([pp, pp[-1:].expand(pad, nprobe)])
+        steps = qp.shape[0] // qc
+        u_all = _select_union(pp.view(steps, qc, nprobe), nlist, union_cap)
+    return perm, qp, u_all
+
+
+def union_scan_args(qp, u_all, codes, sorted_sq, sorted_ids, *, k: int,
+                    window: int, metric: str, pallas_cap: int,
+                    pallas_variant: int) -> dict:
+    """The union-scan call of the kernel route: the union padded with the
+    sentinel to a multiple of ``pick_bb(...)`` (as JAX pads it, which sets
+    the packing width), queries cast to the storage dtype, and ``ktop``
+    (variant 2 selects in the kernel when k <= min(16, cap*window - 1))."""
+    nlist = codes.shape[0] // window - 1
+    steps, d = u_all.shape[0], codes.shape[1]
+    bb = pick_bb(window, d, codes.element_size(), u_all.shape[1])
+    u_pad = (-u_all.shape[1]) % bb
+    if u_pad:
+        u_all = torch.cat([u_all, u_all.new_full((steps, u_pad), nlist)], 1)
+    ktop = k if (pallas_variant == 2
+                 and k <= min(16, pallas_cap * window - 1)) else 0
+    return dict(qs=qp.to(codes.dtype).view(steps, -1, d), u_all=u_all.contiguous(),
+                codes3=codes.view(-1, window, d), sorted_sq=sorted_sq,
+                sorted_ids=sorted_ids, window=window, cap=pallas_cap,
+                metric=metric, variant=pallas_variant, ktop=ktop)
+
+
+def fused_ivf_search_math(q, centroids, cent_sq, codes, scales, sorted_sq,
+                          sorted_ids, spill=None, shadow=None, filt=None,
+                          pq=None, *, k: int, nprobe: int, window: int,
+                          metric: str, recall_target: float, union_cap: int,
+                          qc: int, rerank_depth: int = 16,
+                          union_mode: str = "minrank", backend: str = "xla",
+                          pallas_cap: int = 2, pallas_variant: int = 1,
+                          interpret: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole-batch fused search on resolved parameters. Returns (values,
+    ids) on the final scale (L2: squared distance ascending; IP: score
+    descending). ``recall_target`` and ``interpret`` are taken for the JAX
+    signature: selection is exact, and the union scan picks kernel or plain
+    version from the device of its tensors."""
+    _not_ported(scales, shadow, pq)
+    nq = q.shape[0]
+    nprobe = min(nprobe, centroids.shape[0])
+    qf = q.float()
+    q_sq = (qf * qf).sum(-1)
+    perm, qp, u_all = _coarse_union(qf, centroids, cent_sq, nprobe=nprobe,
+                                    metric=metric, union_cap=union_cap, qc=qc,
+                                    union_mode=union_mode)
+    if backend == "pallas":
+        if filt is not None:
+            raise ValueError("backend='pallas' has no filter operand; filtered "
+                             "searches run the plain chunk body")
+        args = union_scan_args(qp, u_all, codes, sorted_sq, sorted_ids, k=k,
+                               window=window, metric=metric,
+                               pallas_cap=pallas_cap,
+                               pallas_variant=pallas_variant)
+        packed = union_scan(**args)
+        if args["ktop"]:
+            vals_p, ids_p = decode_selected(packed[0], packed[1], args["u_all"],
+                                            sorted_ids, window=window, k=k)
+        else:
+            vals_p, ids_p = decode_topk(packed, args["u_all"], sorted_ids,
+                                        window=window, k=k)
+    else:
+        parts = [_chunk_body(qp[s * qc:(s + 1) * qc], u_all[s], codes,
+                             sorted_sq, sorted_ids, k=k, window=window,
+                             metric=metric, rerank_depth=rerank_depth,
+                             filt=filt)
+                 for s in range(u_all.shape[0])]
+        vals_p = torch.cat([p[0] for p in parts])
+        ids_p = torch.cat([p[1] for p in parts])
+    inv = torch.argsort(perm)
+    return _spill_and_finalize(vals_p[:nq][inv], ids_p[:nq][inv], qf, q_sq,
+                               spill, metric, k, nq, filt=filt)
+
+
+def _spill_and_finalize(best_v, best_i, qf, q_sq, spill, metric, k, nq,
+                        filt=None):
+    """Spill-tier merge (one whole-batch scan, exact top-k, exact merge),
+    then internal scores -> FAISS values, padded to k."""
+    if spill is not None:
+        s_codes, s_scales, s_sq, s_ids = spill
+        _not_ported(s_scales)
+        sscores = _score_rows(qf, s_codes, s_sq, s_ids, metric, filt=filt)
+        k_spill = min(k, sscores.shape[1])
+        sv, sp = _topk(sscores, k_spill)
+        si = s_ids[sp.long()]
+        best_v, best_i = merge_topk(best_v, best_i, sv, si,
+                                    min(k, best_v.shape[1] + k_spill))
+    ok = best_v > NEG_INF
+    best_i = torch.where(ok, best_i, torch.full_like(best_i, -1))
+    if metric == "L2":
+        vals = (q_sq[:, None] - best_v).clamp_min(0.0)
+        vals = torch.where(ok, vals, torch.full_like(vals, float("inf")))
+    else:
+        vals = torch.where(ok, best_v, torch.full_like(best_v, float("-inf")))
+    if vals.shape[1] < k:
+        padk = k - vals.shape[1]
+        fill = float("inf") if metric == "L2" else float("-inf")
+        vals = torch.cat([vals, vals.new_full((nq, padk), fill)], 1)
+        best_i = torch.cat([best_i, best_i.new_full((nq, padk), -1)], 1)
+    return vals, best_i.to(torch.int32)
+
+
+def fused_ivf_search(q, centroids, cent_sq, codes, scales, sorted_sq,
+                     sorted_ids, spill=None, shadow=None, filt=None, pq=None,
+                     *, k: int, nprobe: int, window: int, metric: str = "L2",
+                     recall_target: float = 0.995,
+                     union_cap: Optional[int] = None,
+                     qc: Optional[int] = None, rerank_depth: int = 16,
+                     union_mode: str = "minrank", backend: str = "auto",
+                     pallas_cap: int = 2, pallas_variant: int = 1
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched fused IVF search over a block-padded index. ``backend``:
+    "auto" picks the union-scan kernel on an eligible CUDA index (and then
+    launches it or raises), else the plain chunk body; "xla" / "pallas"
+    force a route ("pallas" on a CPU index runs the kernel's plain
+    version). A filter routes "auto" to the plain chunk body.
+    Returns (values, indices), (Nq, k)."""
+    _not_ported(scales, shadow, pq)
+    nq, dim = q.shape
+    resolved = resolve_fused_dispatch(
+        nq=nq, dim=dim, nlist=centroids.shape[0], window=window,
+        code_bytes=codes.element_size(), quantized=False, has_shadow=False,
+        has_pq=False, has_filter=filt is not None, nprobe=nprobe,
+        union_cap=union_cap, qc=qc, backend=backend,
+        platform=codes.device.type)
+    return fused_ivf_search_math(
+        q, centroids, cent_sq, codes, None, sorted_sq, sorted_ids, spill,
+        None, filt, None, k=k, nprobe=resolved["nprobe"], window=window,
+        metric=metric, recall_target=recall_target,
+        union_cap=resolved["union_cap"], qc=resolved["qc"],
+        rerank_depth=rerank_depth, union_mode=union_mode,
+        backend=resolved["backend"], pallas_cap=pallas_cap,
+        pallas_variant=pallas_variant, interpret=resolved["interpret"])

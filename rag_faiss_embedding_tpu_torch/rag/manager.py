@@ -11,9 +11,10 @@ package's ``VectorStore`` and ``EmbeddingPipeline`` on ``device``:
 - ``load_indices()``, ``search_similar_documents()``, ``delete_documents()``,
   ``reset()``.
 
-Only ``index_kind="flat"`` is ported; "ivf" and "pq" come with slices 2 and
-4. Data files (``documents.db``, ``index.tpu`` + ``.mapping``,
-``vocab.txt``, ``encoder_params.npz``) are the JAX package's formats.
+``index_kind`` "flat" and "ivf" (dense IVF-Flat) are ported; "pq" and IVF-PQ
+(``ivf_pq_m > 0``) come with slice 4. Data files (``documents.db``,
+``index.tpu`` + ``.mapping``, ``vocab.txt``, ``encoder_params.npz``) are the
+JAX package's formats.
 """
 
 from __future__ import annotations
@@ -29,12 +30,13 @@ from rag_faiss_embedding_tpu.core.logging import get_logger
 from rag_faiss_embedding_tpu.store.database import Database
 
 from .. import default_device
+from ..index.ivf import IVFFlatIndex
 from ..index.vector_store import VectorStore
 from ..models.encoder import EmbeddingPipeline
 
 logger = get_logger(__name__)
 
-_LATER_KINDS = {"ivf": "slice 2 (IVF)", "pq": "slice 4 (PQ)"}
+_LATER_KINDS = {"pq": "slice 4 (PQ)"}
 
 
 class RAGManager:
@@ -51,6 +53,9 @@ class RAGManager:
             raise NotImplementedError(
                 f"index_kind={self.index_kind!r} is not ported yet "
                 f"({_LATER_KINDS[self.index_kind]})")
+        if self.index_kind == "ivf" and self.config.ivf_pq_m:
+            raise NotImplementedError(
+                "ivf_pq_m > 0 (IVF-PQ) is not ported yet (slice 4, the PQ tier)")
         self.device = torch.device(device) if device is not None else default_device()
         self.config.setup_directories()
         self.db = Database(self.config.db_path)
@@ -64,12 +69,25 @@ class RAGManager:
             device=self.device,
         )
         # the index dimension is always the encoder's output width
+        dim = self.embedder.cfg.hidden_size
+        index = None
+        if self.index_kind == "ivf":
+            index = IVFFlatIndex(
+                dim,
+                nlist=self.config.ivf_nlist,
+                nprobe=self.config.ivf_nprobe,
+                metric=self.config.index_metric,
+                dtype=self.config.index_dtype,
+                balance=self.config.ivf_balance,
+                device=self.device,
+            )
         self.vector_store = VectorStore(
-            dimension=self.embedder.cfg.hidden_size,
+            dimension=dim,
             metric=self.config.index_metric,
             index_path=self.config.index_path,
             dtype=self.config.index_dtype,
             selector=self.config.search_selector,
+            index=index,
             device=self.device,
         )
 
