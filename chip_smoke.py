@@ -9,8 +9,8 @@ Phases, one JSON object per line:
 
 1. env: torch / CUDA versions and the card (``nvidia-smi``'s name and power
    limit, also printed raw on the line after it).
-2. build: ``nvcc`` builds ``rag_faiss_embedding_tpu_torch/csrc/flat_scan.cu``
-   and ``csrc/union_scan.cu`` for sm_90a, both at once.
+2. build: ``nvcc`` builds ``rag_faiss_embedding_tpu_torch/csrc/flat_scan.cu``,
+   ``csrc/union_scan.cu`` and ``csrc/pq_decode.cu`` for sm_90a, all at once.
 3. kernel: the flat-scan kernel against its plain torch version on the same
    CUDA tensors, over a grid of metrics, dtypes, Q, N, D and k, plus edge
    cases, rows wider than a shared-memory tile, and the 1,048,576 x 384
@@ -40,10 +40,30 @@ Phases, one JSON object per line:
    4,096 documents as the slice phase, the same requests, save and reload,
    checked against the saved index searched on the CPU through the kernel's
    plain version; and its trace (as phase 5).
+8. pq_kernel: the PQ decode kernel against ``decode_reference`` on the same
+   card tensors, bit for bit, over D = 384 with M 16 / 48 / 96 and D = 768
+   with M 96, ksub 16 and 256, bf16 and f32 codebooks, N from 0 to
+   1,048,576, CUDA-event times of both. Then phase 6's 1M rows in
+   ``PQIndex(384, m=48)``, ``IVFFlatIndex(384, nlist=8192, pq_m=48,
+   balance="reassign", train_iters=10)`` and the same IVF-PQ with
+   ``rerank=True`` (int8 refine, depth 64; its coarse quantizer and codec
+   reused): build times and stats, searches at k = 10, Q = 1 and 1,024, at
+   nprobe 8 and at the first nprobe whose union streams in more than one
+   segment, through the kernel (``backend="auto"``) and the plain decode
+   (``"xla"``), which must return identical ids and values; recall@10 of each
+   against the exact float32 top-10 (information: the codec bounds it); the
+   kernel against its plain version at the path's shapes.
+9. pq_slice: ``RAGManager(index_kind="pq")``, then ``RAGManager(
+   index_kind="ivf", ivf_nlist=64, ivf_pq_m=48)``, over the slice's
+   documents and requests, saved and reloaded, checked against the saved
+   index searched on the CPU through the plain decode (each id carries its
+   own ADC distance to the decoded reconstruction); the kernel against its
+   plain version at the path's shapes, and each manager's trace.
 
 Then a ``{"kernels": [...]}`` line (launch counts from each kernel's path:
 the flat scan's from the slice, union-scan variant 1's from the IVF slice,
-variant 2's from the IVF kernel phase) and, last, ``{"ok": true, "device":
+variant 2's from the IVF kernel phase, the PQ decode's from the PQ slice)
+and, last, ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero without the
 last line. It needs no network and no JAX; it exits non-zero where no CUDA
 device is present or the port's package is not beside it.
@@ -67,6 +87,8 @@ KERNEL_REPLACES = "rag_faiss_embedding_tpu/ops/pallas_scan.py:80"
 UNION_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/union_scan.cu"
 UNION_REPLACES = {1: "rag_faiss_embedding_tpu/ops/pallas_ivf.py:182",
                   2: "rag_faiss_embedding_tpu/ops/pallas_ivf.py:100"}
+PQ_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/pq_decode.cu"
+PQ_REPLACES = "rag_faiss_embedding_tpu/ops/pallas_pq.py:59"
 IVF_N, IVF_DIM, IVF_MODES, IVF_NLIST, IVF_Q = 1 << 20, 384, 8192, 8192, 1024
 RECALL_MIN, RECALL_SLACK = 0.95, 0.005
 N_DOCS = 4096
@@ -257,22 +279,18 @@ def slice_requests(docs):
     return picks, queries, batch_queries
 
 
-def slice_phase(torch, F, workdir: Path):
-    import numpy as np
+def drive_slice(torch, cfg, docs, queries, batch_queries):
+    """The slice's main path through ``RAGManager`` on the card: ingest the
+    documents, the 8 requests, one 16-query ``search_batch`` and an answer,
+    save, export the encoder's params, reload in a second manager and ask
+    the 8 requests again. Returns what a phase checks."""
+    import types
 
-    from rag_faiss_embedding_tpu.core.config import Config
-    from rag_faiss_embedding_tpu_torch.index import FlatIndex
-    from rag_faiss_embedding_tpu_torch.models import EmbeddingPipeline
     from rag_faiss_embedding_tpu_torch.models import convert
     from rag_faiss_embedding_tpu_torch.models.generator import AnswerGenerator
     from rag_faiss_embedding_tpu_torch.rag import QueryEngine, RAGManager
 
     cuda = torch.device("cuda")
-    docs = corpus_documents(N_DOCS, SEED)
-    cfg = Config(base_dir=workdir, model_name="chip-smoke-random-init")
-    picks, queries, batch_queries = slice_requests(docs)
-
-    F.flat_search.launches = 0  # count the main path's launches only
     t0 = time.perf_counter()
     manager = RAGManager(config=cfg, device=cuda)
     n = manager.initialize_database(docs)
@@ -299,61 +317,107 @@ def slice_phase(torch, F, workdir: Path):
                           generator=AnswerGenerator(backend="extractive"))
     singles2 = [engine2.search(text, top_k=5) for text in queries]
     torch.cuda.synchronize()
-    launches = F.flat_search.launches
-    n_searches = len(queries) * 2 + 1
+    return types.SimpleNamespace(
+        manager=manager, reloaded=reloaded, engine=engine, n=n, ingest_s=ingest_s,
+        latencies=latencies, singles=singles, singles2=singles2, batch=batch,
+        batch_ms=batch_ms, answer=answer, searches=len(queries) * 2 + 1)
 
-    # --- checks
-    if n != N_DOCS or manager.vector_store.ntotal != N_DOCS:
-        raise AssertionError(f"ingested {n} of {N_DOCS} documents")
-    if any(not hits for hits in singles + singles2 + batch):
+
+def check_slice(run, docs, picks, min_self_hits: int) -> int:
+    """The checks every slice shares: all documents ingested, no empty
+    answer, the reloaded manager answers the same, self-retrieval held for
+    at least ``min_self_hits`` of the 8 requests (returned)."""
+    if run.n != N_DOCS or run.manager.vector_store.ntotal != N_DOCS:
+        raise AssertionError(f"ingested {run.n} of {N_DOCS} documents")
+    if any(not hits for hits in run.singles + run.singles2 + run.batch):
         raise AssertionError("a request returned no documents")
-    self_hits = sum(hits[0]["url"] == docs[i]["url"] for hits, i in zip(singles, picks))
-    if self_hits < 7:
+    self_hits = sum(hits[0]["url"] == docs[i]["url"] for hits, i in zip(run.singles, picks))
+    if self_hits < min_self_hits:
         raise AssertionError(f"self-retrieval held for {self_hits} of 8")
-    if launches < n_searches:
-        raise AssertionError(f"kernel launched {launches} times for {n_searches} searches")
-    index = manager.vector_store.index
-    on_card = [index._buf.is_cuda, index._sq.is_cuda] + [
-        p.is_cuda for p in manager.embedder.model.parameters()]
-    if not all(on_card) or not reloaded.vector_store.index._buf.is_cuda:
-        raise AssertionError("an index or encoder tensor is off the card")
-    for a, b in zip(singles, singles2):
+    for a, b in zip(run.singles, run.singles2):
         if not same_hits(a, b):
             raise AssertionError("the reloaded manager answers differently")
-    if not answer:
+    if not run.answer:
         raise AssertionError("no answer generated")
+    return self_hits
+
+
+def check_against_cpu(torch, run, cpu_index, rows, queries, batch_queries, rtol):
+    """The card index against the same saved index searched on the CPU:
+    the 8 requests by their embeddings, and ``search_batch``'s hits mapped
+    back to index rows, by ``assert_same_topk`` over ``rows``. Returns the
+    embeddings and the id mismatches of both. The random-init encoder packs
+    documents close together, so near-ties among the top 5 are common: ids
+    may differ only where values tie."""
+    index, embedder = run.manager.vector_store.index, run.manager.embedder
+    card_emb = embedder.generate_embeddings(queries)
+    card_v, card_i = index.search(card_emb, 5)
+    cpu_v, cpu_i = cpu_index.search(card_emb, 5)
+    _, top5_mismatch = assert_same_topk(
+        torch, torch.from_numpy(card_emb), rows, card_v.cpu(), card_i.cpu(), cpu_v, cpu_i,
+        "L2", rtol)
+    batch_emb = embedder.generate_embeddings(batch_queries)
+    cpu_bv, cpu_bi = cpu_index.search(batch_emb, 5)
+    row_of = {d: p for p, d in enumerate(run.manager.vector_store.doc_ids)}
+    hit_v = torch.tensor([[h["distance"] for h in hits] for hits in run.batch])
+    hit_i = torch.tensor([[row_of[h["id"]] for h in hits] for hits in run.batch],
+                         dtype=torch.int32)
+    _, batch_mismatch = assert_same_topk(
+        torch, torch.from_numpy(batch_emb), rows, hit_v, hit_i, cpu_bv, cpu_bi, "L2", rtol)
+    return card_emb, batch_emb, top5_mismatch, batch_mismatch
+
+
+def slice_summary(run, phase: str, self_hits: int, top5_mismatch: int,
+                  batch_mismatch: int) -> dict:
+    """The fields every slice phase reports."""
+    return {"phase": phase, "documents": run.n, "ingest_s": run.ingest_s,
+            "request_ms": run.latencies,
+            "request_ms_median": statistics.median(run.latencies),
+            "batch16_ms": run.batch_ms, "self_retrieval": f"{self_hits}/8",
+            "searches": run.searches, "top5_id_mismatch_vs_cpu": top5_mismatch,
+            "batch_top5_id_mismatch_vs_cpu": batch_mismatch,
+            "answer_chars": len(run.answer)}
+
+
+def slice_phase(torch, F, workdir: Path):
+    import numpy as np
+
+    from rag_faiss_embedding_tpu.core.config import Config
+    from rag_faiss_embedding_tpu_torch.index import FlatIndex
+    from rag_faiss_embedding_tpu_torch.models import EmbeddingPipeline
+    from rag_faiss_embedding_tpu_torch.models import convert
+
+    cuda = torch.device("cuda")
+    docs = corpus_documents(N_DOCS, SEED)
+    cfg = Config(base_dir=workdir, model_name="chip-smoke-random-init")
+    picks, queries, batch_queries = slice_requests(docs)
+
+    F.flat_search.launches = 0  # count the main path's launches only
+    run = drive_slice(torch, cfg, docs, queries, batch_queries)
+    launches = F.flat_search.launches
+
+    self_hits = check_slice(run, docs, picks, 7)
+    if launches < run.searches:
+        raise AssertionError(f"kernel launched {launches} times for {run.searches} searches")
+    manager, index = run.manager, run.manager.vector_store.index
+    on_card = [index._buf.is_cuda, index._sq.is_cuda] + [
+        p.is_cuda for p in manager.embedder.model.parameters()]
+    if not all(on_card) or not run.reloaded.vector_store.index._buf.is_cuda:
+        raise AssertionError("an index or encoder tensor is off the card")
 
     # the same pipeline on the CPU: embeddings, then the plain scan
+    cpu_index = FlatIndex.from_state_dict(index.state_dict(), device="cpu")
+    card_emb, batch_emb, top5_mismatch, batch_mismatch = check_against_cpu(
+        torch, run, cpu_index, torch.from_numpy(cpu_index.vectors()), queries,
+        batch_queries, RTOL["float32"])
     cpu_pipe = EmbeddingPipeline(
         params=convert.to_flax_params(manager.embedder.model.state_dict(),
                                       manager.embedder.cfg),
         cfg=manager.embedder.cfg, tokenizer=manager.embedder.tokenizer,
         device="cpu")
-    card_emb = manager.embedder.generate_embeddings(queries)
-    cpu_emb = cpu_pipe.generate_embeddings(queries)
-    emb_err = float(np.abs(card_emb - cpu_emb).max())
+    emb_err = float(np.abs(card_emb - cpu_pipe.generate_embeddings(queries)).max())
     if emb_err > 1e-3:
         raise AssertionError(f"card vs CPU embeddings differ by {emb_err}")
-    cpu_index = FlatIndex.from_state_dict(index.state_dict(), device="cpu")
-    card_v, card_i = index.search(card_emb, 5)
-    cpu_v, cpu_i = cpu_index.search(card_emb, 5)
-    # the random-init encoder packs documents close together, so near-ties
-    # among the top 5 are common: ids may differ only where values tie
-    _, top5_mismatch = assert_same_topk(
-        torch, torch.from_numpy(card_emb), torch.from_numpy(cpu_index.vectors()),
-        card_v.cpu(), card_i.cpu(), cpu_v, cpu_i, "L2", RTOL["float32"])
-
-    # search_batch's hits against the CPU plain search on the same
-    # embeddings, by the same rule (hits mapped back to index rows)
-    batch_emb = manager.embedder.generate_embeddings(batch_queries)
-    cpu_bv, cpu_bi = cpu_index.search(batch_emb, 5)
-    row_of = {d: p for p, d in enumerate(manager.vector_store.doc_ids)}
-    hit_v = torch.tensor([[h["distance"] for h in hits] for hits in batch])
-    hit_i = torch.tensor([[row_of[h["id"]] for h in hits] for hits in batch],
-                         dtype=torch.int32)
-    _, batch_mismatch = assert_same_topk(
-        torch, torch.from_numpy(batch_emb), torch.from_numpy(cpu_index.vectors()),
-        hit_v, hit_i, cpu_bv, cpu_bi, "L2", RTOL["float32"])
 
     # kernel vs plain at the main path's shapes, on distinct queries (after
     # the launch count): Q = 1 (one request) and Q = 16 (search_batch)
@@ -370,20 +434,14 @@ def slice_phase(torch, F, workdir: Path):
             "ms": cuda_ms(torch, lambda: F.flat_search(*args, **kw)),
             "plain_ms": cuda_ms(torch, lambda: F.flat_search_reference(*args, **kw)),
         }
-    trace = trace_phase(torch, engine, queries, batch_queries)
+    trace = trace_phase(torch, run.engine, queries, batch_queries)
     manager.cleanup()
-    reloaded.cleanup()
+    run.reloaded.cleanup()
     return trace, {
-        "phase": "slice", "documents": n,
+        **slice_summary(run, "slice", self_hits, top5_mismatch, batch_mismatch),
         "encoder": dataclasses.asdict(manager.embedder.cfg),
-        "ingest_s": ingest_s, "request_ms": latencies,
-        "request_ms_median": statistics.median(latencies),
-        "batch16_ms": batch_ms, "self_retrieval": f"{self_hits}/8",
-        "flat_scan_launches": launches, "searches": n_searches,
-        "embedding_max_abs_err_vs_cpu": emb_err,
-        "top5_id_mismatch_vs_cpu": top5_mismatch,
-        "batch_top5_id_mismatch_vs_cpu": batch_mismatch,
-        "main_path_kernel_times": shapes, "answer_chars": len(answer),
+        "flat_scan_launches": launches, "embedding_max_abs_err_vs_cpu": emb_err,
+        "main_path_kernel_times": shapes,
     }
 
 
@@ -490,7 +548,7 @@ def union_args(S, idx, q, k: int, variant: int, nprobe=None):
     idx.nprobe = saved
     if disp["backend"] != "pallas" or disp["interpret"]:
         raise AssertionError(f"the index does not dispatch the kernel: {disp}")
-    _, qp, u_all = S._coarse_union(
+    _, qp, u_all, _ = S._coarse_union(
         q.float(), idx._cent_store, idx._cent_sq, nprobe=disp["nprobe"],
         metric=idx.metric, union_cap=disp["union_cap"], qc=disp["qc"],
         union_mode=disp["union_mode"])
@@ -585,11 +643,10 @@ IVF_ROUTES = (("union_scan v1", "auto", 1), ("union_scan v2", "auto", 2),
               ("plain chunk body", "xla", 1))
 
 
-def ivf_kernel_phase(torch):
-    from rag_faiss_embedding_tpu_torch.index import FlatIndex, IVFFlatIndex
-    from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
-    from rag_faiss_embedding_tpu_torch.ops import union_scan as U
-
+def bench_rows(torch):
+    """bench.py's IVF distribution, made on the card from a seeded
+    generator: 1,048,576 x 384 rows (8,192 Gaussian modes, row = mode + 0.7
+    noise) and 1,024 queries (a row + 0.3 noise)."""
     cuda = torch.device("cuda")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     randn = lambda *s: torch.randn(*s, generator=g, device=cuda)
@@ -599,6 +656,16 @@ def ivf_kernel_phase(torch):
     queries = db[torch.randint(0, IVF_N, (IVF_Q,), generator=g, device=cuda)]
     queries += 0.3 * randn(IVF_Q, IVF_DIM)
     torch.cuda.synchronize()
+    return db, queries
+
+
+def ivf_kernel_phase(torch):
+    from rag_faiss_embedding_tpu_torch.index import FlatIndex, IVFFlatIndex
+    from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
+    from rag_faiss_embedding_tpu_torch.ops import union_scan as U
+
+    cuda = torch.device("cuda")
+    db, queries = bench_rows(torch)
 
     t0 = time.perf_counter()
     idx = IVFFlatIndex(IVF_DIM, nlist=IVF_NLIST, dtype="bfloat16", train_iters=10,
@@ -692,15 +759,10 @@ def ivf_kernel_phase(torch):
 
 # ------------------------------------------------------------------ phase 7
 def ivf_slice_phase(torch, workdir: Path):
-    import numpy as np
-
     from rag_faiss_embedding_tpu.core.config import Config
     from rag_faiss_embedding_tpu_torch.index import IVFFlatIndex
-    from rag_faiss_embedding_tpu_torch.models import convert
-    from rag_faiss_embedding_tpu_torch.models.generator import AnswerGenerator
     from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
     from rag_faiss_embedding_tpu_torch.ops import union_scan as U
-    from rag_faiss_embedding_tpu_torch.rag import QueryEngine, RAGManager
 
     cuda = torch.device("cuda")
     docs = corpus_documents(N_DOCS, SEED)
@@ -710,80 +772,29 @@ def ivf_slice_phase(torch, workdir: Path):
 
     U.union_scan.launches = 0  # count the main path's launches only
     U.union_scan.variant_launches = {1: 0, 2: 0}
-    t0 = time.perf_counter()
-    manager = RAGManager(config=cfg, device=cuda)
-    n = manager.initialize_database(docs)
-    torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t0
-    engine = QueryEngine(manager.db, manager.vector_store, manager.embedder,
-                         generator=AnswerGenerator(backend="extractive"))
-    latencies, singles = [], []
-    for text in queries:
-        t = time.perf_counter()
-        singles.append(engine.search(text, top_k=5))
-        latencies.append((time.perf_counter() - t) * 1e3)
-    t = time.perf_counter()
-    batch = engine.search_batch(batch_queries, top_k=5)
-    batch_ms = (time.perf_counter() - t) * 1e3
-    answer = engine.generate_response(batch_queries[-1], batch[-1])
-    manager.vector_store.save_index()
-    convert.export_params(
-        convert.to_flax_params(manager.embedder.model.state_dict(),
-                               manager.embedder.cfg),
-        cfg.data_dir / "encoder_params.npz")
-    reloaded = RAGManager(config=cfg, device=cuda)
-    engine2 = QueryEngine(reloaded.db, reloaded.vector_store, reloaded.embedder,
-                          generator=AnswerGenerator(backend="extractive"))
-    singles2 = [engine2.search(text, top_k=5) for text in queries]
-    torch.cuda.synchronize()
+    run = drive_slice(torch, cfg, docs, queries, batch_queries)
     launches = U.union_scan.variant_launches[1]
-    n_searches = len(queries) * 2 + 1
 
-    # --- checks
-    index = manager.vector_store.index
+    index = run.manager.vector_store.index
     if not isinstance(index, IVFFlatIndex) or not isinstance(
-            reloaded.vector_store.index, IVFFlatIndex):
+            run.reloaded.vector_store.index, IVFFlatIndex):
         raise AssertionError("the ivf manager did not build an IVFFlatIndex")
-    if n != N_DOCS or index.ntotal != N_DOCS:
-        raise AssertionError(f"ingested {n} of {N_DOCS} documents")
-    if any(not hits for hits in singles + singles2 + batch):
-        raise AssertionError("a request returned no documents")
-    self_hits = sum(hits[0]["url"] == docs[i]["url"] for hits, i in zip(singles, picks))
-    if self_hits < 7:
-        raise AssertionError(f"self-retrieval held for {self_hits} of 8")
-    if launches < n_searches:
-        raise AssertionError(f"union scan launched {launches} times for {n_searches} searches")
+    self_hits = check_slice(run, docs, picks, 7)
+    if launches < run.searches:
+        raise AssertionError(f"union scan launched {launches} times for {run.searches} searches")
     tensors = [index._sorted_vecs, index._sorted_sq, index._sorted_ids, index._cent_store,
                index._cent_sq, index.centroids, index._pending._buf,
-               reloaded.vector_store.index._sorted_vecs]
+               run.reloaded.vector_store.index._sorted_vecs]
     if not all(t.is_cuda for t in tensors) or not all(
-            p.is_cuda for p in manager.embedder.model.parameters()):
+            p.is_cuda for p in run.manager.embedder.model.parameters()):
         raise AssertionError("an index or encoder tensor is off the card")
-    for a, b in zip(singles, singles2):
-        if not same_hits(a, b):
-            raise AssertionError("the reloaded manager answers differently")
-    if not answer:
-        raise AssertionError("no answer generated")
 
     # the same saved index on the CPU, through the kernel's plain version
     cpu_index = IVFFlatIndex.from_state_dict(index.state_dict(), device="cpu",
                                              backend="pallas")
-    cpu_rows = torch.from_numpy(cpu_index.vectors())
-    card_emb = manager.embedder.generate_embeddings(queries)
-    card_v, card_i = index.search(card_emb, 5)
-    cpu_v, cpu_i = cpu_index.search(card_emb, 5)
-    _, top5_mismatch = assert_same_topk(
-        torch, torch.from_numpy(card_emb), cpu_rows, card_v.cpu(), card_i.cpu(),
-        cpu_v, cpu_i, "L2", RTOL["float32"])
-    batch_emb = manager.embedder.generate_embeddings(batch_queries)
-    cpu_bv, cpu_bi = cpu_index.search(batch_emb, 5)
-    row_of = {d: p for p, d in enumerate(manager.vector_store.doc_ids)}
-    hit_v = torch.tensor([[h["distance"] for h in hits] for hits in batch])
-    hit_i = torch.tensor([[row_of[h["id"]] for h in hits] for hits in batch],
-                         dtype=torch.int32)
-    _, batch_mismatch = assert_same_topk(
-        torch, torch.from_numpy(batch_emb), cpu_rows, hit_v, hit_i, cpu_bv, cpu_bi,
-        "L2", RTOL["float32"])
+    card_emb, batch_emb, top5_mismatch, batch_mismatch = check_against_cpu(
+        torch, run, cpu_index, torch.from_numpy(cpu_index.vectors()), queries,
+        batch_queries, RTOL["float32"])
 
     # the kernel against its plain version at the path's shapes
     shapes, max_err = {}, 0.0
@@ -799,23 +810,291 @@ def ivf_slice_phase(torch, workdir: Path):
             "ms": cuda_ms(torch, lambda: U.union_scan(**args)),
             "plain_ms": cuda_ms(torch, lambda: U.union_scan_reference(**args)),
         }
-    trace = trace_phase(torch, engine, queries, batch_queries)
+    trace = trace_phase(torch, run.engine, queries, batch_queries)
     trace["phase"] = "ivf_trace"
-    manager.cleanup()
-    reloaded.cleanup()
+    run.manager.cleanup()
+    run.reloaded.cleanup()
     return trace, {
-        "phase": "ivf_slice", "documents": n, "nlist": index.nlist,
-        "window": index._window, "spill_rows": index._n_spill,
+        **slice_summary(run, "ivf_slice", self_hits, top5_mismatch, batch_mismatch),
+        "nlist": index.nlist, "window": index._window, "spill_rows": index._n_spill,
         "resolved_dispatch_q1": index.resolved_dispatch(1),
-        "ingest_s": ingest_s, "request_ms": latencies,
-        "request_ms_median": statistics.median(latencies),
-        "batch16_ms": batch_ms, "self_retrieval": f"{self_hits}/8",
-        "union_scan_v1_launches": launches, "searches": n_searches,
-        "top5_id_mismatch_vs_cpu": top5_mismatch,
-        "batch_top5_id_mismatch_vs_cpu": batch_mismatch,
-        "main_path_kernel_times": shapes, "max_abs_err": max_err,
-        "answer_chars": len(answer),
+        "union_scan_v1_launches": launches, "main_path_kernel_times": shapes,
+        "max_abs_err": max_err,
     }
+
+
+# ------------------------------------------------------------------ phase 8
+PQ_ROUTES = (("pq_decode kernel", "auto"), ("plain decode", "xla"))
+PQ_DECODE_COLUMNS = ["D", "M", "ksub", "dtype", "N", "groups", "max_abs_err", "ms",
+                     "plain_ms"]
+
+
+def decode_check(torch, PD, cb, codes):
+    """K4 against ``decode_reference`` on the same card tensors, compared as
+    raw bits; returns (max_abs_err, ms, plain_ms)."""
+    out = PD.decode(cb, codes)
+    torch.cuda.synchronize()
+    ref = PD.decode_reference(cb, codes)
+    bits = torch.int16 if cb.dtype == torch.bfloat16 else torch.int32
+    if (out.dtype != ref.dtype or out.shape != ref.shape
+            or not torch.equal(out.view(bits), ref.view(bits))):
+        raise AssertionError(f"pq_decode differs from its plain version: codes "
+                             f"{tuple(codes.shape)}, codebook {tuple(cb.shape)} {cb.dtype}")
+    err = float((out.float() - ref.float()).abs().max()) if out.numel() else 0.0
+    del out, ref
+    return (err, cuda_ms(torch, lambda: PD.decode(cb, codes)),
+            cuda_ms(torch, lambda: PD.decode_reference(cb, codes)))
+
+
+def pq_decode_grid(torch, PD):
+    """K4 over D = 384 with M 16 / 48 / 96 and D = 768 with M 96, ksub 16 and
+    256, bf16 and f32 codebooks, N from 0 to 1,048,576."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    cases, max_err = [], 0.0
+    for d, m in ((384, 16), (384, 48), (384, 96), (768, 96)):
+        for ksub in (16, 256):
+            for dtype in (torch.bfloat16, torch.float32):
+                cb = torch.randn((m, ksub, d // m), generator=g, device="cuda").to(dtype)
+                for n in (0, 1, 127, 4096, 1 << 20):
+                    codes = torch.randint(0, ksub, (n, m), generator=g,
+                                          device="cuda").to(torch.uint8)
+                    err, ms, plain_ms = decode_check(torch, PD, cb, codes)
+                    max_err = max(max_err, err)
+                    cases.append([d, m, ksub, str(dtype).removeprefix("torch."), n,
+                                  PD.plan(m, ksub, d // m, dtype)["groups"], err, ms,
+                                  plain_ms])
+    torch.cuda.empty_cache()
+    return cases, max_err
+
+
+def pq_path_codes(S, idx, q, nprobe=None):
+    """The codes the PQ chunk body of ``idx.search(q, k, nprobe)`` decodes in
+    its first union segment of its first query chunk, with the dispatch and
+    the union segment count."""
+    saved, idx.nprobe = idx.nprobe, nprobe or idx.nprobe
+    disp = idx.resolved_dispatch(q.shape[0])
+    idx.nprobe = saved
+    _, _, u_all, _ = S._coarse_union(
+        q.float(), idx._cent_store, idx._cent_sq, nprobe=disp["nprobe"],
+        metric=idx.metric, union_cap=disp["union_cap"], qc=disp["qc"],
+        union_mode=disp["union_mode"])
+    useg = S._pq_union_segments(u_all.shape[1], idx._window, idx.pq_m, idx.dim, disp["qc"])
+    seg = -(-u_all.shape[1] // useg)
+    codes3 = idx._sorted_vecs.view(-1, idx._window, idx.pq_m)
+    return codes3[u_all[0, :seg].long()].reshape(-1, idx.pq_m), disp, useg
+
+
+def pq_routes(torch, idx, queries, truth, nprobe=None):
+    """``idx.search`` at k = 10, Q = 1 (64 single queries) and Q = 1,024
+    through the kernel and the plain decode. The two routes must return the
+    same bits (the same decoded values feed the same product). One row per
+    route: recall@10 against ``truth`` and host-clock search times."""
+    kw = {} if nprobe is None else {"nprobe": nprobe}
+    single = queries[:64]
+    rows, outs = [], []
+    for name, backend in PQ_ROUTES:
+        idx.backend = backend
+        ones = [idx.search(single[i:i + 1], 10, **kw) for i in range(len(single))]
+        v, i = idx.search(queries, 10, **kw)
+        outs.append((torch.cat([o[0] for o in ones]), torch.cat([o[1] for o in ones]), v, i))
+        rows.append({
+            "route": name, "nprobe": nprobe,
+            "recall@10_q1": recall_at(outs[-1][1], truth[:len(single)]),
+            "recall@10_q1024": recall_at(i, truth),
+            "search_ms_q1": host_ms(torch, lambda: idx.search(single[:1], 10, **kw), 10),
+            "search_ms_q1024": host_ms(torch, lambda: idx.search(queries, 10, **kw), 5),
+        })
+    idx.backend = "auto"
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError(f"kernel and plain decode routes disagree (nprobe {nprobe})")
+    v, i = outs[0][2], outs[0][3]
+    if not (bool((i >= 0).all()) and bool(torch.isfinite(v).all())
+            and bool((v[:, 1:] >= v[:, :-1]).all())):
+        raise AssertionError("a Q = 1,024 search returned missing or unsorted slots")
+    return rows
+
+
+def pq_kernel_phase(torch):
+    from rag_faiss_embedding_tpu_torch.index import FlatIndex, IVFFlatIndex, PQIndex
+    from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
+    from rag_faiss_embedding_tpu_torch.ops import pq_decode as PD
+
+    cuda = torch.device("cuda")
+    grid, max_err = pq_decode_grid(torch, PD)
+    db, queries = bench_rows(torch)
+    flat = FlatIndex(IVF_DIM, capacity=IVF_N, device=cuda)
+    flat.add(db)
+    _, truth = flat.search(queries, 10)  # exact float32 top-10
+    del flat
+    torch.cuda.empty_cache()
+
+    PD.decode.launches = 0  # count the path's launches only
+    built = {}
+    ivf_kw = dict(nlist=IVF_NLIST, pq_m=48, balance="reassign", train_iters=10, device=cuda)
+    for name, make in (
+            ("pq", lambda: PQIndex(IVF_DIM, m=48, device=cuda)),
+            ("ivf_pq", lambda: IVFFlatIndex(IVF_DIM, **ivf_kw)),
+            ("ivf_pq_refine", lambda: IVFFlatIndex(IVF_DIM, rerank=True, **ivf_kw))):
+        idx = make()
+        if name == "ivf_pq_refine":  # the same IVF-PQ: its coarse quantizer and codec
+            base = built["ivf_pq"][0]
+            idx.centroids, idx.is_trained = base.centroids, True
+            idx.pq_codebooks = base.pq_codebooks
+        t0 = time.perf_counter()
+        idx.build(db)
+        torch.cuda.synchronize()
+        built[name] = (idx, time.perf_counter() - t0)
+    del db
+    torch.cuda.empty_cache()
+
+    indexes, cases = [], []
+    for name, (idx, build_s) in built.items():
+        entry = {"index": name, "build_s": build_s}
+        if name == "pq":
+            entry.update(m=idx.m, ksub=idx.ksub, compute=idx.compute_dtype,
+                         routes=pq_routes(torch, idx, queries, truth))
+            cb = idx.codebooks.to(torch.bfloat16)
+            for start in (0, 1 << 19):  # the scan's two 524,288-row chunks
+                codes = idx._codes[start:start + (1 << 19)]
+                err, ms, plain_ms = decode_check(torch, PD, cb, codes)
+                max_err = max(max_err, err)
+                cases.append({"index": name, "Q": "any", "rows": codes.shape[0],
+                              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        else:
+            useg_probe = None
+            for nprobe in (32, 64, 128, 256, 512):
+                if pq_path_codes(S, idx, queries, nprobe)[2] > 1:
+                    useg_probe = nprobe
+                    break
+            if useg_probe is None:
+                raise AssertionError("no nprobe up to 512 segments the PQ union")
+            routes = []
+            for nprobe in (8, useg_probe):
+                routes += pq_routes(torch, idx, queries, truth, nprobe)
+                for nq in (1, IVF_Q):
+                    codes, disp, useg = pq_path_codes(S, idx, queries[:nq], nprobe)
+                    err, ms, plain_ms = decode_check(torch, PD, idx._pq_cb_compute(), codes)
+                    max_err = max(max_err, err)
+                    cases.append({"index": name, "Q": nq, "nprobe": nprobe, "qc": disp["qc"],
+                                  "union_cap": disp["union_cap"], "useg": useg,
+                                  "rows": codes.shape[0], "max_abs_err": err, "ms": ms,
+                                  "plain_ms": plain_ms})
+            entry.update(window=idx._window, spill_rows=idx._n_spill,
+                         rerank=idx.rerank, refine_dtype=idx.refine_dtype,
+                         rerank_depth=idx.rerank_depth, useg_nprobe=useg_probe,
+                         build_stats={k: v for k, v in idx.build_stats.items() if k != "train"},
+                         train_stats=idx.build_stats.get("train"),
+                         resolved_dispatch_q1024=idx.resolved_dispatch(IVF_Q), routes=routes)
+        entry["search_profile"] = {f"Q={q.shape[0]}": search_profile(torch, idx, q, reps)
+                                   for q, reps in ((queries[:1], 8), (queries, 3))}
+        indexes.append(entry)
+    torch.cuda.synchronize()
+    launches = PD.decode.launches
+    if launches == 0:
+        raise AssertionError("the PQ indexes never launched pq_decode")
+    return {"phase": "pq_kernel", "N": IVF_N, "D": IVF_DIM, "decode_columns": PQ_DECODE_COLUMNS,
+            "decode_cases": grid, "indexes": indexes, "path_cases": cases,
+            "path_launches": launches}, max_err
+
+
+# ------------------------------------------------------------------ phase 9
+def pq_slice_run(torch, workdir: Path, label: str, **index_kw):
+    """One PQ manager over the slice's documents and requests, checked
+    against the saved index searched on the CPU through the plain decode.
+    Each returned id must carry its own ADC distance, recomputed in float64
+    against the decoded reconstruction (rtol 1e-3: bf16 compute). The codec
+    blurs near neighbours, so self-retrieval is recorded, not gated."""
+    from rag_faiss_embedding_tpu.core.config import Config
+    from rag_faiss_embedding_tpu_torch.index import IVFFlatIndex, PQIndex
+    from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
+    from rag_faiss_embedding_tpu_torch.ops import pq_decode as PD
+
+    cuda = torch.device("cuda")
+    docs = corpus_documents(N_DOCS, SEED)
+    cfg = Config(base_dir=workdir, model_name="chip-smoke-random-init", **index_kw)
+    picks, queries, batch_queries = slice_requests(docs)
+
+    PD.decode.launches = 0  # count the main path's launches only
+    run = drive_slice(torch, cfg, docs, queries, batch_queries)
+    launches = PD.decode.launches
+
+    index = run.manager.vector_store.index
+    is_ivf = label == "ivf_pq"
+    want = (IVFFlatIndex, 48) if is_ivf else (PQIndex, None)
+    if not (isinstance(index, want[0]) and isinstance(run.reloaded.vector_store.index, want[0])
+            and getattr(index, "pq_m", None) == want[1]):
+        raise AssertionError(f"the {label} manager did not build its PQ index")
+    self_hits = check_slice(run, docs, picks, 0)
+    if launches < run.searches:
+        raise AssertionError(f"pq_decode launched {launches} times for {run.searches} searches")
+    if is_ivf:
+        tensors = [index._sorted_vecs, index._sorted_sq, index._sorted_ids,
+                   index._cent_store, index.pq_codebooks, index._pending._buf,
+                   run.reloaded.vector_store.index._sorted_vecs]
+    else:
+        tensors = [index._codes, index._sq, index.codebooks,
+                   run.reloaded.vector_store.index._codes]
+    if not all(t.is_cuda for t in tensors) or not all(
+            p.is_cuda for p in run.manager.embedder.model.parameters()):
+        raise AssertionError("an index or encoder tensor is off the card")
+
+    # the same saved index on the CPU, through the plain decode; the rows a
+    # result is checked against are its reconstructions
+    cpu_index = type(index).from_state_dict(index.state_dict(), device="cpu", backend="xla")
+    if is_ivf:
+        rec, rec_ids = cpu_index.vectors(return_ids=True)
+        if rec_ids.tolist() != list(range(N_DOCS)):
+            raise AssertionError("the IVF-PQ index lost a row")
+    else:
+        rec = cpu_index.vectors()
+    card_emb, batch_emb, top5_mismatch, batch_mismatch = check_against_cpu(
+        torch, run, cpu_index, torch.from_numpy(rec), queries, batch_queries,
+        RTOL["bfloat16"])
+
+    # the kernel against its plain version at the path's shapes
+    shapes, max_err = {}, 0.0
+    for emb in (card_emb[:1], batch_emb):
+        q = torch.from_numpy(emb).to(cuda)
+        if is_ivf:
+            codes, disp, useg = pq_path_codes(S, index, q)
+            cb, extra = index._pq_cb_compute(), {"qc": disp["qc"], "useg": useg,
+                                                 "union_cap": disp["union_cap"],
+                                                 "window": index._window}
+        else:
+            codes = index._codes[:min(524288, index._capacity)]
+            cb, extra = index.codebooks.to(torch.bfloat16), {}
+        err, ms, plain_ms = decode_check(torch, PD, cb, codes)
+        max_err = max(max_err, err)
+        shapes[f"Q={q.shape[0]}"] = {"rows": codes.shape[0], "M": codes.shape[1],
+                                     "dtype": str(cb.dtype).removeprefix("torch."),
+                                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                     **extra}
+    trace = trace_phase(torch, run.engine, queries, batch_queries)
+    trace["phase"] = f"{label}_trace"
+    run.manager.cleanup()
+    run.reloaded.cleanup()
+    out = {**slice_summary(run, label, self_hits, top5_mismatch, batch_mismatch),
+           "index_kind": cfg.index_kind, "pq_decode_launches": launches,
+           "main_path_kernel_times": shapes, "max_abs_err": max_err}
+    if is_ivf:
+        out.update(nlist=index.nlist, pq_m=index.pq_m, window=index._window,
+                   spill_rows=index._n_spill, resolved_dispatch_q1=index.resolved_dispatch(1))
+    else:
+        out.update(m=index.m, compute=index.compute_dtype)
+    return trace, out
+
+
+def pq_slice_phase(torch):
+    """``RAGManager(index_kind="pq")``, then ``RAGManager(index_kind="ivf",
+    ivf_nlist=64, ivf_pq_m=48)``, each in a fresh directory."""
+    out, traces = {"phase": "pq_slice"}, []
+    for label, kw in (("pq", dict(index_kind="pq")),
+                      ("ivf_pq", dict(index_kind="ivf", ivf_nlist=64, ivf_pq_m=48))):
+        with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir:
+            trace, out[label] = pq_slice_run(torch, Path(workdir), label, **kw)
+        traces.append(trace)
+    out["pq_decode_launches"] = sum(out[k]["pq_decode_launches"] for k in ("pq", "ivf_pq"))
+    return traces, out
 
 
 def main() -> int:
@@ -838,15 +1117,17 @@ def main() -> int:
 
     from rag_faiss_embedding_tpu_torch import _build
     from rag_faiss_embedding_tpu_torch.ops import flat_scan as F
+    from rag_faiss_embedding_tpu_torch.ops import pq_decode as PD
     from rag_faiss_embedding_tpu_torch.ops import union_scan as U
 
     t0 = time.perf_counter()
-    names = ("flat_scan", "union_scan")
+    names = ("flat_scan", "union_scan", "pq_decode")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:  # one nvcc each
         libs = dict(zip(names, pool.map(_build.build, names)))
     F.load()  # load the libraries and bind their entry points
     U.load()
-    emit({"phase": "build", "sources": [KERNEL_SOURCE, UNION_SOURCE],
+    PD.load()
+    emit({"phase": "build", "sources": [KERNEL_SOURCE, UNION_SOURCE, PQ_SOURCE],
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
           "nvcc_s": dict(_build.build.seconds),
           "build_and_load_s": time.perf_counter() - t0})
@@ -866,8 +1147,14 @@ def main() -> int:
         ivf_trace, ivf_sl = ivf_slice_phase(torch, Path(workdir))
     emit(ivf_sl)
     emit(ivf_trace)
+    pq, pq_err = pq_kernel_phase(torch)
+    emit(pq)
+    pq_traces, pq_sl = pq_slice_phase(torch)
+    emit(pq_sl)
+    for trace in pq_traces:
+        emit(trace)
 
-    loaded = [m for m in ("jax", "flax", "rag_faiss_embedding_tpu.ops") if m in sys.modules]
+    loaded =[m for m in ("jax", "flax", "rag_faiss_embedding_tpu.ops") if m in sys.modules]
     if loaded:
         raise AssertionError(f"the port pulled in JAX modules: {loaded}")
     main_shape = sl["main_path_kernel_times"]["Q=1"]
@@ -890,6 +1177,12 @@ def main() -> int:
         "max_abs_err": union_err[2],
         "ms": ivf["kernel_cases"][1]["ms"],
         "plain_ms": ivf["kernel_cases"][1]["plain_ms"],
+    }, {
+        "name": "pq_decode", "route": "cuda", "source": PQ_SOURCE,
+        "replaces": PQ_REPLACES, "launches": pq_sl["pq_decode_launches"],
+        "max_abs_err": max(pq_err, *(pq_sl[k]["max_abs_err"] for k in ("pq", "ivf_pq"))),
+        "ms": pq_sl["pq"]["main_path_kernel_times"]["Q=1"]["ms"],
+        "plain_ms": pq_sl["pq"]["main_path_kernel_times"]["Q=1"]["plain_ms"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,12 @@ stays as it is). Module names and public APIs follow the JAX package, so each
 module here has its counterpart there:
 
   ops/       plain torch distance + top-k (``distance``), k-means
-             (``kmeans``), the fused IVF search (``ivf_scan``) and the kernel
-             wrappers (``flat_scan``, ``union_scan``; CUDA sources in
-             ``csrc/``)
-  index/     FlatIndex, IVFFlatIndex, VectorStore, the npz codec
+             (``kmeans``), product quantization (``pq``), int8 row
+             quantization (``quantize``), the fused IVF search
+             (``ivf_scan``) and the kernel wrappers (``flat_scan``,
+             ``union_scan``, ``pq_decode``; CUDA sources in ``csrc/``)
+  index/     FlatIndex, IVFFlatIndex (dense and IVF-PQ), PQIndex,
+             VectorStore, the npz codec
   models/    MiniLM ``nn.Module``, Flax-param conversion, tokenizer,
              embedding pipeline, answer generator
   rag/       QueryEngine, RAGManager

@@ -49,12 +49,13 @@ def build(name: str) -> Path:
     out = BUILD_DIR / digest / f"lib{name}.so"
     if out.exists():
         return out
+    nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     # compile to a private name, then rename: concurrent builders never
     # load a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

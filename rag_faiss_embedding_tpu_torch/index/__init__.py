@@ -1,3 +1,4 @@
 from .flat import FlatIndex
 from .ivf import IVFFlatIndex
+from .pq import PQIndex
 from .vector_store import VectorStore

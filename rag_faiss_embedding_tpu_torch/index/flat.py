@@ -19,8 +19,8 @@ its kernel has no mask operand. A CPU index runs the plain scan. A CUDA
 index serves k up to the kernel's ``KMAX`` (64), masked or not; ``check_k``
 raises ``ValueError`` above it.
 
-Not ported yet: int8 storage and the "approx" / "rerank" selectors (slice 3,
-the int8 tier).
+Not ported yet: int8 storage and the "approx" / "rerank" selectors (the int8
+tier).
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def _dtype_name(dtype) -> str:
     name = str(dtype).removeprefix("torch.")
     if name == "int8":
         raise NotImplementedError(
-            "int8 flat storage is not ported yet (slice 3, the int8 tier)")
+            "int8 flat storage is not ported yet (the int8 tier)")
     if name not in _DTYPES:
         raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {dtype!r}")
     return name
@@ -71,7 +71,7 @@ class FlatIndex:
     ):
         if selector in ("approx", "rerank"):
             raise NotImplementedError(
-                f"selector={selector!r} is not ported yet (slice 3, the int8 tier)")
+                f"selector={selector!r} is not ported yet (the int8 tier)")
         if selector != "exact":
             raise ValueError(
                 f"selector must be 'exact', 'approx' or 'rerank', got {selector!r}")

@@ -15,15 +15,22 @@ layout, arguments and file format:
 - search is the fused batched path of ``ops/ivf_scan.py``: on a CUDA index
   ``backend="auto"`` launches the union-scan kernel (``csrc/union_scan.cu``)
   or raises; a filter takes the plain chunk body, as in JAX;
+- IVF-PQ (``pq_m``, the FAISS ``IndexIVFPQ`` analog): lists hold M-byte
+  residual codes of (x - centroid), optionally OPQ-rotated (``pq_opq``),
+  with exact ||c + r̂||^2 norms; the pending tier stays dense bfloat16. The
+  scan decodes through the PQ decode kernel (``csrc/pq_decode.cu``) on a
+  CUDA index unless ``backend="xla"``. ``rerank=True`` keeps a compact
+  refine shadow (int8 by default, or bfloat16 / float32 rows, plus a
+  slot -> row map) and re-scores the top ``rerank_depth`` ADC candidates;
 - ``state_dict`` writes the JAX package's "padded_v3" npz layout, so an
   index saved by either package loads in the other.
 
 ``remove_ids`` writes -1 into the block ids in place on the device.
 
-Not ported yet: int8 storage and ``rerank`` (slice 3, the int8 tier), ``pq_m``
-and ``build_chunked`` (slice 4, the PQ tier). The per-query windowed search
-(``use_fused=False``) is not ported: ``probe_scan_math`` is kept only as a
-test oracle.
+Not ported yet: dense int8 storage and ``rerank`` without ``pq_m`` (the
+int8 tier), and ``build_chunked`` (the out-of-memory IVF-PQ build). The
+per-query windowed search (``use_fused=False``) is not ported:
+``probe_scan_math`` is kept only as a test oracle.
 """
 
 from __future__ import annotations
@@ -38,15 +45,19 @@ from rag_faiss_embedding_tpu.core.logging import get_logger
 
 from .. import default_device
 from ..ops import distance as dist_ops
+from ..ops import pq as pq_ops
 from ..ops.ivf_scan import fused_ivf_search, resolve_fused_dispatch
 from ..ops.kmeans import assign as kmeans_assign, assign_topk, spatial_order, train_kmeans
+from ..ops.quantize import dequantize, quantize_rows
 from . import codec
 from .flat import _DTYPES, FlatIndex, _dtype_name, _round_up
 
 logger = get_logger(__name__)
 
-_INT8_TIER = "slice 3, the int8 tier"
-_PQ_TIER = "slice 4, the PQ tier"
+_INT8_TIER = "the int8 tier"
+# the npz dtype tag of each refine shadow saved as raw values (bf16 saves as
+# uint16 bits)
+_SHADOW_DTYPES = {np.dtype(np.int8): torch.int8, np.dtype(np.float32): torch.float32}
 
 
 def probe_scan_math(q, sorted_vecs, sorted_sq, sorted_ids, offsets, lengths,
@@ -136,11 +147,6 @@ class IVFFlatIndex:
             raise ValueError(f"metric must be 'L2' or 'IP', got {metric!r}")
         if balance not in ("spill", "reassign"):
             raise ValueError(f"balance must be 'spill' or 'reassign', got {balance!r}")
-        if pq_m or pq_opq:
-            raise NotImplementedError(f"IVF-PQ storage is not ported yet ({_PQ_TIER})")
-        if rerank:
-            raise NotImplementedError(
-                f"the IVF shadow rerank is not ported yet ({_INT8_TIER})")
         if refine_dtype not in ("int8", "bfloat16", "float32"):
             raise ValueError(f"bad refine_dtype {refine_dtype!r}")
         if union_mode not in ("auto", "minrank", "chunkmax"):
@@ -151,8 +157,30 @@ class IVFFlatIndex:
         self.nlist = int(nlist)
         self.metric = metric
         self.nprobe = int(nprobe)
-        self.dtype_name = _dtype_name(dtype)  # int8 raises, naming slice 3
-        self.dtype = _DTYPES[self.dtype_name]
+        # IVF-PQ: lists hold M-byte residual codes (x - centroid), optionally
+        # OPQ-rotated (codes encode (x - c) @ R; the scan rotates queries);
+        # the pending tier stays dense bf16
+        self.pq_m = int(pq_m) if pq_m else None
+        self.pq_ksub = int(pq_ksub)
+        self.pq_compute = pq_compute
+        self.pq_codebooks: Optional[torch.Tensor] = None  # (M, ksub, dsub) f32
+        self._pq_cb_store: Optional[torch.Tensor] = None  # compute-dtype copy
+        self.pq_opq = bool(pq_opq)
+        self.pq_rot: Optional[torch.Tensor] = None        # (D, D) f32
+        if self.pq_m:
+            if str(dtype).removeprefix("torch.") == "int8":
+                raise ValueError("pq_m and int8 storage are exclusive")
+            if self.dim % self.pq_m:
+                raise ValueError(f"dim {self.dim} not divisible by pq_m={self.pq_m}")
+            if pq_compute not in ("bf16", "f32"):
+                raise ValueError("pq_compute must be 'bf16' or 'f32'")
+            self.dtype_name, self.dtype = "uint8", torch.uint8  # list storage = codes
+        else:
+            if rerank:
+                raise NotImplementedError(
+                    f"the dense IVF shadow rerank is not ported yet ({_INT8_TIER})")
+            self.dtype_name = _dtype_name(dtype)  # int8 raises, naming its tier
+            self.dtype = _DTYPES[self.dtype_name]
         self.device = torch.device(device) if device is not None else default_device()
         self.train_iters = train_iters
         self.seed = seed
@@ -170,7 +198,8 @@ class IVFFlatIndex:
         self._window = 0
         self._n_built = 0
         self.ndeleted = 0
-        self._pending = FlatIndex(dim, metric=metric, dtype=self.dtype_name,
+        self._pending = FlatIndex(dim, metric=metric,
+                                  dtype="bfloat16" if self.pq_m else self.dtype_name,
                                   device=self.device)
         self._pending_rowids = np.zeros((0,), np.int32)
         self._pending_rowids_dev: Optional[torch.Tensor] = None
@@ -188,7 +217,21 @@ class IVFFlatIndex:
         self.union_cap = union_cap
         self.balance_weight = float(balance_weight)
         self._assign_bias: Optional[torch.Tensor] = None
-        self.rerank_depth = int(rerank_depth if rerank_depth is not None else 16)
+        # PQ refine (FAISS IndexRefine analog): with pq_m, rerank keeps a
+        # shadow of the full rows and re-scores the ADC scan's top
+        # rerank_depth candidates (a deeper default pool: the ADC order is
+        # what the refine repairs)
+        self.rerank = bool(rerank)
+        self.refine_dtype = refine_dtype
+        self.rerank_depth = int(rerank_depth if rerank_depth is not None
+                                else (64 if (self.pq_m and self.rerank) else 16))
+        # the PQ refine shadow: COMPACT (n_rows, D) rows in any order, with
+        # the (n_slots,) slot -> row map _shadow_pos (-1 = dead slot); a
+        # block-padded D-wide shadow would cost slots / rows x its size
+        self._sorted_shadow: Optional[torch.Tensor] = None
+        self._sorted_shadow_scales: Optional[torch.Tensor] = None
+        self._sorted_shadow_sq: Optional[torch.Tensor] = None
+        self._shadow_pos: Optional[torch.Tensor] = None
         self.union_mode = union_mode
         self.query_chunk: Optional[int] = None
         # "pallas": the union-scan kernel on a CUDA index, its plain version
@@ -265,6 +308,82 @@ class IVFFlatIndex:
         kstats["relabel_s"] = time.perf_counter() - t0
         self.build_stats["train"] = kstats
         self.is_trained = True
+
+    # ----------------------------------------------------------------- PQ
+    def _pq_encode_rows(self, rows_f32: torch.Tensor, lists: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Residual-encode rows against their lists' centroids (the sentinel
+        list clamped to the last one); returns ((n, M) uint8 codes, (n,)
+        float32 exact ||c + r̂||^2), chunked so no corpus-sized decode is
+        made. Trains the codec on the residuals first if it has none."""
+        if self.pq_codebooks is None:
+            cl_all = lists.clamp_max(self.nlist - 1)
+            self._train_pq_codec(rows_f32 - self.centroids[cl_all])
+        codes_parts, sq_parts = [], []
+        chunk = 131072
+        for start in range(0, int(rows_f32.shape[0]), chunk):
+            cents = self.centroids[lists[start:start + chunk].clamp_max(self.nlist - 1)]
+            rc = rows_f32[start:start + chunk] - cents
+            if self.pq_rot is not None:
+                rc = rc @ self.pq_rot
+            cc, _ = pq_ops.pq_encode(self.pq_codebooks, rc)
+            rec = pq_ops.pq_decode(self.pq_codebooks, cc)
+            if self.pq_rot is not None:
+                rec = rec @ self.pq_rot.T  # back to the original basis
+            sq_parts.append(dist_ops.sqnorms(rec + cents))
+            codes_parts.append(cc)
+        if not codes_parts:
+            return (torch.zeros((0, self.pq_m), dtype=torch.uint8, device=self.device),
+                    torch.zeros((0,), device=self.device))
+        return torch.cat(codes_parts), torch.cat(sq_parts)
+
+    def _train_pq_codec(self, resid_sample: torch.Tensor) -> None:
+        """Train the residual codebooks (and the OPQ rotation with
+        ``pq_opq``); drops the cached compute-dtype copy."""
+        t0 = time.perf_counter()
+        if self.pq_opq:
+            self.pq_rot, cb = pq_ops.train_opq(resid_sample, self.pq_m, ksub=self.pq_ksub,
+                                               n_iters=self.train_iters, seed=self.seed)
+        else:
+            cb = pq_ops.train_pq(resid_sample, self.pq_m, ksub=self.pq_ksub,
+                                 n_iters=self.train_iters, seed=self.seed)
+        self.pq_codebooks = cb
+        self._pq_cb_store = None
+        self.build_stats["pq_train_s"] = time.perf_counter() - t0
+
+    def _refine_rows(self, rows_f32: torch.Tensor, exact_sq: torch.Tensor):
+        """Refine-shadow rows: (int8 codes, scales, exact norms) for
+        ``refine_dtype="int8"``, else (float32 / bf16 rows, None, norms).
+        The norms ride along for persistence; the re-score uses each
+        dequantized row's own norm."""
+        if self.refine_dtype == "int8":
+            codes, scales = quantize_rows(rows_f32)
+            return codes, scales, exact_sq
+        if self.refine_dtype == "float32":
+            return rows_f32, None, exact_sq
+        return rows_f32.to(torch.bfloat16), None, exact_sq
+
+    def _pq_shadow(self):
+        """The refine shadow as the fused scan takes it: (rows, scales |
+        None, exact norms, slot -> row map), or None."""
+        if self._sorted_shadow is None or not self.pq_m:
+            return None
+        return (self._sorted_shadow, self._sorted_shadow_scales,
+                self._sorted_shadow_sq, self._shadow_pos)
+
+    def _pq_cb_compute(self) -> torch.Tensor:
+        """The codebooks in the scan's compute dtype (cached)."""
+        if self._pq_cb_store is None:
+            dt = torch.bfloat16 if self.pq_compute == "bf16" else torch.float32
+            self._pq_cb_store = self.pq_codebooks.to(dt)
+        return self._pq_cb_store
+
+    def _cent_dtype(self) -> torch.dtype:
+        """The coarse-scan centroid copy's dtype: the compute dtype under PQ,
+        else the storage dtype."""
+        if self.pq_m:
+            return torch.bfloat16 if self.pq_compute == "bf16" else torch.float32
+        return self.dtype
 
     def _rescue_exhausted(self, vecs_f32, spill_rows: np.ndarray,
                           assign_np: np.ndarray, cap: int) -> np.ndarray:
@@ -365,13 +484,31 @@ class IVFFlatIndex:
         src = torch.full((n_slots,), n, dtype=torch.long, device=dev)
         src[dest] = torch.arange(n, device=dev)
         src[nlist * window:] = n  # wipe the dump / sentinel block
-        sorted_sq = dist_ops.sqnorms(sorted_f32)  # exact, before the cast
-        zrow = torch.zeros((1, self.dim), dtype=self.dtype, device=dev)
-        self._sorted_vecs = torch.cat([sorted_f32.to(self.dtype), zrow])[src]
+        exact_sq = dist_ops.sqnorms(sorted_f32)  # exact, before any quantization
+        self._sorted_shadow = self._sorted_shadow_scales = None
+        self._sorted_shadow_sq = self._shadow_pos = None
+        encode_s = 0.0
+        if self.pq_m:
+            self._sync()
+            t_enc = time.perf_counter()
+            sorted_codes, sorted_sq = self._pq_encode_rows(sorted_f32, a_sorted)
+            if self.rerank:
+                # compact shadow in sorted order + slot -> row map; spilled
+                # rows keep entries no slot points to
+                (self._sorted_shadow, self._sorted_shadow_scales,
+                 self._sorted_shadow_sq) = self._refine_rows(sorted_f32, exact_sq)
+                self._shadow_pos = torch.where(src < n, src, -1).to(torch.int32)
+            self._sync()
+            encode_s = time.perf_counter() - t_enc
+            bstats["encode_s"] = encode_s
+        else:
+            sorted_codes, sorted_sq = sorted_f32.to(self.dtype), exact_sq
+        zrow = sorted_codes.new_zeros((1, sorted_codes.shape[1]))
+        self._sorted_vecs = torch.cat([sorted_codes, zrow])[src]
         self._sorted_sq = torch.cat([sorted_sq, sorted_sq.new_zeros(1)])[src]
         self._sorted_ids = torch.cat([sorted_ids, sorted_ids.new_full((1,), -1)])[src]
         self._sync()
-        bstats["scatter_s"] = time.perf_counter() - t0
+        bstats["scatter_s"] = time.perf_counter() - t0 - encode_s
 
         # ---- spill rows (rank >= window, or the sentinel list) -> exact tier
         t0 = time.perf_counter()
@@ -392,7 +529,7 @@ class IVFFlatIndex:
         self._offsets = torch.arange(nlist, dtype=torch.int32, device=dev) * window
         self._lengths = torch.as_tensor(np.minimum(lengths_np, window), dtype=torch.int32,
                                         device=dev)
-        self._cent_store = self.centroids.to(self.dtype)
+        self._cent_store = self.centroids.to(self._cent_dtype())
         self._cent_sq = dist_ops.sqnorms(self.centroids)
         self._window = window
         self._n_built = n - n_spill
@@ -404,7 +541,8 @@ class IVFFlatIndex:
         logger.info("built IVF: n=%d nlist=%d window=%d spill=%d", n, nlist, window, n_spill)
 
     def build_chunked(self, *args, **kwargs) -> None:
-        raise NotImplementedError(f"build_chunked is not ported yet ({_PQ_TIER})")
+        raise NotImplementedError(
+            "build_chunked (the out-of-memory IVF-PQ build) is not ported yet")
 
     def add(self, vectors) -> None:
         """Streaming add into the exact pending tier; the first add builds,
@@ -490,11 +628,15 @@ class IVFFlatIndex:
                 "probe_scan_math is kept as a test oracle only")
         spill = self._pending_dev() if self._pending.ntotal else None
         backend = self.backend
-        if filt is not None and backend == "pallas":
-            backend = "xla"  # the union scan has no filter operand
+        if (filt is not None or self.pq_m) and backend == "pallas":
+            # the union scan has no filter operand and no PQ stage; PQ keeps
+            # its decode kernel inside the plain chunk body
+            backend = "xla"
         return fused_ivf_search(
             q, self._cent_store, self._cent_sq, self._sorted_vecs, None,
             self._sorted_sq, self._sorted_ids, spill, None, filt,
+            self._pq_cb_compute() if self.pq_m else None,
+            bool(self.pq_m) and self.backend != "xla", self._pq_shadow(), self.pq_rot,
             k=k, nprobe=nprobe, window=self._window, metric=self.metric,
             recall_target=self.recall_target, union_cap=self.union_cap,
             rerank_depth=self.rerank_depth, qc=self.query_chunk,
@@ -513,12 +655,15 @@ class IVFFlatIndex:
         knobs)."""
         if self._sorted_vecs is None:
             raise ValueError("resolved_dispatch needs a built index")
+        backend = self.backend
+        if self.pq_m and backend == "pallas":
+            backend = "xla"
         out = resolve_fused_dispatch(
             nq=nq, dim=self.dim, nlist=self.nlist, window=self._window,
             code_bytes=self._sorted_vecs.element_size(), quantized=False,
-            has_shadow=False, has_pq=False, has_filter=False,
+            has_shadow=False, has_pq=bool(self.pq_m), has_filter=False,
             nprobe=min(self.nprobe, self.nlist), union_cap=self.union_cap,
-            qc=self.query_chunk, backend=self.backend,
+            qc=self.query_chunk, backend=backend,
             platform=self._sorted_vecs.device.type)
         out.update({
             "union_mode": self._resolved_union_mode(),
@@ -533,9 +678,12 @@ class IVFFlatIndex:
 
     # ------------------------------------------------------------- manage
     def reset(self) -> None:
+        """Drop every row and the coarse quantizer; PQ codebooks are kept."""
         self.is_trained = False
         self.centroids = self._cent_store = self._cent_sq = None
         self._sorted_vecs = self._sorted_sq = self._sorted_ids = None
+        self._sorted_shadow = self._sorted_shadow_scales = None
+        self._sorted_shadow_sq = self._shadow_pos = None
         self._offsets = self._lengths = None
         self._window = self._n_built = self._next_id = 0
         self._n_spill = self._n_streamed = 0
@@ -547,14 +695,31 @@ class IVFFlatIndex:
     def _live_mask(self) -> np.ndarray:
         return self._sorted_ids.cpu().numpy() >= 0
 
+    def _built_rows(self, pos: torch.Tensor) -> torch.Tensor:
+        """float32 rows of block slots ``pos``: the stored rows, or under PQ
+        the refine shadow (the better copy) or else centroid + decoded
+        residual (un-rotated from the OPQ basis)."""
+        if not self.pq_m:
+            return self._sorted_vecs[pos].float()
+        if self._sorted_shadow is not None:
+            sp = self._shadow_pos[pos].long()
+            if self._sorted_shadow_scales is not None:
+                return dequantize(self._sorted_shadow[sp], self._sorted_shadow_scales[sp])
+            return self._sorted_shadow[sp].float()
+        resid = pq_ops.pq_decode(self.pq_codebooks, self._sorted_vecs[pos])
+        if self.pq_rot is not None:
+            resid = resid @ self.pq_rot.T
+        return resid + self.centroids[pos // self._window]
+
     def vectors(self, return_ids: bool = False):
         """Live vectors in original insertion order (float32 host copies;
-        tombstones excluded), and with ``return_ids`` their ids."""
+        tombstones excluded; PQ rows reconstructed), and with ``return_ids``
+        their ids."""
         all_vecs, all_ids = [], []
         if self._n_built:
             live = self._live_mask()
             pos = torch.as_tensor(np.nonzero(live)[0], device=self.device)
-            all_vecs.append(self._sorted_vecs[pos].float().cpu().numpy())
+            all_vecs.append(self._built_rows(pos).cpu().numpy())
             all_ids.append(self._sorted_ids.cpu().numpy()[live])
         if self._pending.ntotal:
             plive = self._pending_rowids >= 0
@@ -574,7 +739,8 @@ class IVFFlatIndex:
     def state_dict(self) -> dict:
         """Exact state in the "padded_v3" format: live block rows in list
         order + per-list lengths (reload re-scatters them), the pending tier's
-        live rows, the centroids."""
+        live rows, the centroids; under PQ the codebooks, the OPQ rotation
+        and the refine shadow's rows in the same block order."""
         state = {
             "kind": "ivf",
             "format": "padded_v3",
@@ -595,6 +761,17 @@ class IVFFlatIndex:
             "assign_bias": self._assign_bias.cpu().numpy()
             if self._assign_bias is not None else np.zeros((0,), np.float32),
         }
+        if self.pq_m:
+            state.update({
+                "pq_m": self.pq_m,
+                "pq_ksub": self.pq_ksub,
+                "pq_compute": self.pq_compute,
+                "pq_codebooks": self.pq_codebooks.cpu().numpy()
+                if self.pq_codebooks is not None
+                else np.zeros((self.pq_m, 0, self.dim // self.pq_m), np.float32),
+            })
+            if self.pq_rot is not None:
+                state["pq_rot"] = self.pq_rot.cpu().numpy()
         if self._n_built:
             live = self._live_mask()
             pos = torch.as_tensor(np.nonzero(live)[0], device=self.device)
@@ -605,6 +782,14 @@ class IVFFlatIndex:
                 "lengths": live[: self.nlist * self._window]
                 .reshape(self.nlist, self._window).sum(1).astype(np.int64),
             })
+            if self._sorted_shadow is not None:
+                sh = self._shadow_pos[pos].long()
+                state["shadow"] = codec.to_host(self._sorted_shadow[sh])
+                if self._sorted_shadow_scales is not None:
+                    state["shadow_scales"] = self._sorted_shadow_scales[sh].cpu().numpy()
+                if self._sorted_shadow_sq is not None:
+                    state["shadow_sq"] = self._sorted_shadow_sq[sh].cpu().numpy()
+                state["refine_dtype"] = self.refine_dtype
         if self._pending.ntotal:
             p = self._pending
             plive = self._pending_rowids >= 0
@@ -616,8 +801,10 @@ class IVFFlatIndex:
             })
         return state
 
-    def _install_blocks(self, codes, sq, ids, lengths_np: np.ndarray) -> None:
-        """Scatter compact per-list rows into the block-padded layout."""
+    def _install_blocks(self, codes, sq, ids, lengths_np: np.ndarray, shadow=None,
+                        shadow_scales=None, shadow_sq=None) -> None:
+        """Scatter compact per-list rows into the block-padded layout; a PQ
+        refine shadow stays compact, with its slot -> row map."""
         nlist, window, dev = self.nlist, self._window, self.device
         n_live = int(codes.shape[0])
         listid = np.repeat(np.arange(nlist), lengths_np)
@@ -629,9 +816,15 @@ class IVFFlatIndex:
         self._sorted_vecs = torch.cat([codes, codes.new_zeros((1, codes.shape[1]))])[src]
         self._sorted_sq = torch.cat([sq, sq.new_zeros(1)])[src]
         self._sorted_ids = torch.cat([ids, ids.new_full((1,), -1)])[src]
+        if shadow is not None:
+            self._sorted_shadow = shadow.to(dev)
+            self._sorted_shadow_scales = (shadow_scales.to(dev)
+                                          if shadow_scales is not None else None)
+            self._sorted_shadow_sq = shadow_sq.to(dev) if shadow_sq is not None else None
+            self._shadow_pos = torch.where(src < n_live, src, -1).to(torch.int32)
         self._offsets = torch.arange(nlist, dtype=torch.int32, device=dev) * window
         self._lengths = torch.as_tensor(lengths_np, dtype=torch.int32, device=dev)
-        self._cent_store = self.centroids.to(self.dtype)
+        self._cent_store = self.centroids.to(self._cent_dtype())
         self._cent_sq = dist_ops.sqnorms(self.centroids)
         self._n_built = n_live
 
@@ -641,14 +834,26 @@ class IVFFlatIndex:
             v = np.asarray(v)
             return v.item() if v.ndim == 0 else v
 
+        pq_kwargs = {}
         if "pq_m" in state:
-            raise NotImplementedError(f"IVF-PQ indexes are not ported yet ({_PQ_TIER})")
-        if "shadow" in state:
+            pq_kwargs = {"pq_m": int(item(state["pq_m"])),
+                         "pq_ksub": int(item(state["pq_ksub"])),
+                         "pq_compute": str(item(state["pq_compute"]))}
+        elif "shadow" in state:
             raise NotImplementedError(
-                f"IVF shadow-rerank indexes are not ported yet ({_INT8_TIER})")
+                f"dense IVF shadow-rerank indexes are not ported yet ({_INT8_TIER})")
+        # under PQ the list dtype is re-derived (uint8 codes)
+        dtype = "bfloat16" if pq_kwargs else str(item(state["dtype"]))
         idx = cls(dim=int(item(state["dim"])), nlist=int(item(state["nlist"])),
                   metric=str(item(state["metric"])), nprobe=int(item(state["nprobe"])),
-                  dtype=str(item(state["dtype"])), **kwargs)
+                  dtype=dtype, **pq_kwargs, **kwargs)
+        cb = np.asarray(state.get("pq_codebooks", np.zeros(0)))
+        if cb.size:
+            idx.pq_codebooks = torch.tensor(cb, dtype=torch.float32, device=idx.device)
+        if "pq_rot" in state:
+            idx.pq_opq = True
+            idx.pq_rot = torch.tensor(np.asarray(state["pq_rot"]), dtype=torch.float32,
+                                      device=idx.device)
         if "window_quantile" in state:
             idx.window_quantile = float(item(state["window_quantile"]))
         if "rerank_depth" in state:
@@ -677,19 +882,37 @@ class IVFFlatIndex:
             codes = codec.from_host(np.asarray(state["codes"]), idx.dtype)
             sq = torch.tensor(np.asarray(state["sqnorms"]), dtype=torch.float32)
             ids = torch.tensor(np.asarray(state["sorted_ids"]), dtype=torch.int32)
+            shadow = shadow_scales = shadow_sq = None
+            if "shadow" in state:
+                sh_np = np.asarray(state["shadow"])
+                # int8 and float32 shadows save as their values, bf16 as bits
+                shadow = codec.from_host(sh_np, _SHADOW_DTYPES.get(sh_np.dtype, torch.bfloat16))
+                if "shadow_scales" in state:
+                    shadow_scales = torch.tensor(np.asarray(state["shadow_scales"]),
+                                                 dtype=torch.float32)
+                if "shadow_sq" in state:
+                    shadow_sq = torch.tensor(np.asarray(state["shadow_sq"]),
+                                             dtype=torch.float32)
+                if "refine_dtype" in state:
+                    idx.refine_dtype = str(item(state["refine_dtype"]))
+            idx.rerank = shadow is not None
             lengths_np = np.asarray(state["lengths"], np.int64)
             if fmt == "sorted_v2":
                 # legacy contiguous layout: list l's live rows are the first
-                # lengths[l] at offsets[l]
+                # lengths[l] at offsets[l]; the shadow rows run beside them
                 offsets_np = np.asarray(state["offsets"], np.int64)
                 sel = torch.as_tensor(np.concatenate([
                     np.arange(off, off + ln) for off, ln in zip(offsets_np, lengths_np)
                 ]).astype(np.int64) if lengths_np.sum() else np.zeros(0, np.int64))
                 codes, sq, ids = codes[sel], sq[sel], ids[sel]
-            idx._install_blocks(codes, sq, ids, lengths_np)
+                shadow, shadow_scales, shadow_sq = (
+                    t[sel] if t is not None else None
+                    for t in (shadow, shadow_scales, shadow_sq))
+            idx._install_blocks(codes, sq, ids, lengths_np, shadow=shadow,
+                                shadow_scales=shadow_scales, shadow_sq=shadow_sq)
         if "pending_codes" in state:
             idx._pending = FlatIndex.from_state_dict(
-                {"dim": idx.dim, "metric": idx.metric, "dtype": idx.dtype_name,
+                {"dim": idx.dim, "metric": idx.metric, "dtype": idx._pending.dtype_name,
                  "vectors": np.asarray(state["pending_codes"])}, device=idx.device)
             idx._pending_rowids = np.asarray(state["pending_rowids"], np.int32)
             idx._pending_rowids_dev = None

@@ -9,8 +9,9 @@ ids without the sidecar, ``remove_doc_ids`` and ``allowed_doc_ids``
 filtering. The files are the JAX package's format: each package loads the
 other's.
 
-The "flat" and "ivf" index kinds are ported; "pq" and the sharded kinds
-come with later slices. FAISS binary import comes with ``faiss_import``.
+The "flat", "ivf" (dense and IVF-PQ) and "pq" index kinds are ported; the
+sharded kinds come with the multi-GPU tier. FAISS binary import comes with
+``faiss_import``.
 """
 
 from __future__ import annotations
@@ -26,14 +27,14 @@ from rag_faiss_embedding_tpu.core.logging import get_logger
 
 from .flat import FlatIndex
 from .ivf import IVFFlatIndex
+from .pq import PQIndex
 
 logger = get_logger(__name__)
 
 # index kinds of the JAX package that this port does not load yet
 _LATER_KINDS = {
-    "pq": "slice 4 (PQ)",
-    "sharded_flat": "slice 6 (multi-GPU)",
-    "sharded_ivf": "slice 6 (multi-GPU)",
+    "sharded_flat": "the multi-GPU tier",
+    "sharded_ivf": "the multi-GPU tier",
 }
 
 
@@ -44,7 +45,7 @@ class VectorStore:
         metric: str = "L2",
         index_path: str | Path = "data/index.tpu",
         dtype: str = "float32",
-        index: Optional[FlatIndex | IVFFlatIndex] = None,
+        index: Optional[FlatIndex | IVFFlatIndex | PQIndex] = None,
         selector: str = "exact",
         device: Optional[torch.device | str] = None,
     ):
@@ -171,6 +172,8 @@ class VectorStore:
             )
         elif kind == "ivf":
             self.index = IVFFlatIndex.from_state_dict(state, device=self.device)
+        elif kind == "pq":
+            self.index = PQIndex.from_state_dict(state, device=self.device)
         else:
             raise ValueError(f"unknown index kind {kind!r}")
         self.dimension = self.index.dim

@@ -1,7 +1,7 @@
 """Fused batched IVF search: coarse stage, chunk unions, union scan, spill.
 
 Counterpart of ``rag_faiss_embedding_tpu/ops/ivf_scan.py`` for dense float32
-/ bfloat16 storage, with the same steps and dispatch:
+/ bfloat16 storage and PQ codes, with the same steps and dispatch:
 
 1. coarse: one (Nq, nlist) float32 product for the whole batch (queries cast
    to the centroids' dtype first, as JAX does);
@@ -15,16 +15,22 @@ Counterpart of ``rag_faiss_embedding_tpu/ops/ivf_scan.py`` for dense float32
    (``ops/union_scan.py``; its plain version on a CPU index) and decodes its
    packed candidates; ``backend="xla"`` is the plain chunk body
    (``_chunk_body``), a Python loop over chunks where JAX uses scan/vmap;
+   PQ storage (``pq`` given) always takes the PQ chunk body
+   (``_chunk_body_pq``): residual codes decoded (``pq_w``: through the
+   decode kernel's wrapper, else the plain gather), one product per union
+   segment plus the coarse stage's q.centroid shift, a running top
+   ``k_cand``, and the optional compact refine shadow;
 5. the spill tier (window overflow + streaming adds) is scored once for the
    whole batch and merged exactly, then scores become distances.
 
-Where JAX selects with ``lax.approx_max_k`` (the chunk body; the coarse stage
-past 2,048 lists), the port selects exactly: off the TPU ``approx_max_k`` is
-an exact top-k, so the CPU parity tests compare like with like. Selection
-ties go to the lowest index throughout (stable sorts / ``small_topk``).
+Where JAX selects with ``lax.approx_max_k`` (the chunk bodies; the coarse
+stage past 2,048 lists), the port selects exactly: off the TPU
+``approx_max_k`` is an exact top-k, so the CPU parity tests compare like
+with like. Selection ties go to the lowest index throughout (stable sorts /
+``small_topk``).
 
-int8 storage, the bf16 shadow rerank and PQ codes are not ported yet: they
-raise ``NotImplementedError`` naming their slice.
+int8 storage and the dense bf16 shadow rerank are not ported yet: they raise
+``NotImplementedError`` naming the int8 tier.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from .distance import NEG_INF, merge_topk, small_topk
+from .pq_decode import decode as pq_decode_kernel, decode_reference as pq_decode_plain
 from .union_scan import (
     decode_selected, decode_topk, kernel_eligible, pick_bb, union_scan,
 )
@@ -45,13 +52,11 @@ _RANK_INF = 1 << 30
 logger = logging.getLogger(__name__)
 
 
-def _not_ported(scales=None, shadow=None, pq=None) -> None:
+def _not_ported(scales=None, shadow=None) -> None:
     if scales is not None or shadow is not None:
         raise NotImplementedError(
-            "int8 IVF storage and the shadow rerank are not ported yet "
-            "(slice 3, the int8 tier)")
-    if pq is not None:
-        raise NotImplementedError("IVF-PQ is not ported yet (slice 4, the PQ tier)")
+            "int8 IVF storage and the dense shadow rerank are not ported yet "
+            "(the int8 tier)")
 
 
 def _topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -140,6 +145,17 @@ def resolve_fused_dispatch(*, nq: int, dim: int, nlist: int, window: int,
             "backend": backend, "interpret": interpret}
 
 
+def _pq_union_segments(u_n: int, window: int, m_bytes: int, d: int, qc: int) -> int:
+    """Segments the PQ chunk stage streams its union in, so a step's live
+    bytes (gathered codes, ids and norms, decoded rows, the score matrix)
+    stay under ``_STEP_BYTES_BUDGET``; equal segments. JAX's rule."""
+    bytes_per_list = window * (m_bytes + 8 + 4 * d + 4 * qc)
+    useg = max(1, -(-int(u_n) * bytes_per_list // _STEP_BYTES_BUDGET))
+    if useg > 1:
+        useg = -(-u_n // (-(-u_n // useg)))
+    return int(useg)
+
+
 def _select_union(probes: torch.Tensor, nlist: int, union_cap: int) -> torch.Tensor:
     """Compact each chunk's (qc, nprobe) probe lists to ``union_cap`` unique
     list ids ranked by min probe rank; unused slots hold the sentinel
@@ -195,9 +211,96 @@ def _chunk_body(q, u, codes, sorted_sq, sorted_ids, *, k: int, window: int,
     return best_v, rid[pos.long()]
 
 
+def _chunk_body_pq(q, qr, u, cdu, codes, sorted_sq, sorted_ids, pq_cb, *, k: int,
+                   window: int, metric: str, rerank_depth: int, filt=None,
+                   pq_w: bool = False, shadow=None, useg: int = 1):
+    """PQ chunk stage for one query chunk: ``q`` (qc, D) float32 queries,
+    ``qr`` the same rotated by OPQ (== q without), ``u`` (U,) union list
+    ids, ``cdu`` (qc, U) raw q.centroid dots of those lists. Residual codes
+    decode (in ``pq_cb``'s dtype) and score as
+    ``q.x̂ = q.c_list + qr.r̂``; L2 adds the exact stored ||c + r̂||^2.
+    The top ``k_cand = max(k, rerank_depth)`` per query is kept (over
+    ``useg`` union segments with a running merge when asked), then either
+    trimmed to k or, with ``shadow`` = (rows, scales | None, exact norms,
+    slot -> row map), re-scored exactly against the dequantized shadow rows
+    with their own norms and re-masked (a dead or filtered row never comes
+    back). Returns (values, ids) on the internal scale."""
+    m = codes.shape[1]
+    qc_n = q.shape[0]
+    u_count = u.shape[0]
+    codes3 = codes.view(-1, window, m)
+    ids2 = sorted_ids.view(-1, window)
+    sq2 = sorted_sq.view(-1, window)
+    sent = codes3.shape[0] - 1          # the sentinel list (rows carry id -1)
+    decode = pq_decode_kernel if pq_w else pq_decode_plain
+    lane = torch.arange(window, dtype=torch.long, device=q.device)
+
+    def seg_scores(u_s, cdu_s):
+        ul = u_s.long()
+        rows = codes3[ul].reshape(-1, m)
+        rid = ids2[ul].reshape(-1)
+        rsq = sq2[ul].reshape(-1)
+        dec = decode(pq_cb, rows)                               # (S*window, D)
+        dots = qr.to(dec.dtype).float() @ dec.float().T
+        dots = dots + cdu_s.repeat_interleave(window, dim=1)
+        scores = 2.0 * dots - rsq[None, :] if metric == "L2" else dots
+        scores = scores.masked_fill(~_live_rows(rid, filt)[None, :], NEG_INF)
+        slots = (ul[:, None] * window + lane[None, :]).reshape(-1)
+        return scores, rid, slots
+
+    k_cand = min(max(k, rerank_depth), u_count * window)
+    if useg <= 1:
+        scores, rid, slots = seg_scores(u, cdu)
+        best_v, pos = _topk(scores, k_cand)
+        best_i = rid[pos.long()]
+        best_slot = slots[pos.long()]
+    else:
+        # stream the union in segments with a running top-k_cand: the step's
+        # memory is one segment's, each union row is still decoded once
+        seg = -(-u_count // useg)
+        pad = useg * seg - u_count
+        if pad:
+            u = torch.cat([u, u.new_full((pad,), sent)])
+            cdu = torch.cat([cdu, cdu.new_zeros((qc_n, pad))], 1)
+        kc_seg = min(k_cand, seg * window)
+        best_v = torch.full((qc_n, k_cand), NEG_INF, device=q.device)
+        best_slot = torch.zeros((qc_n, k_cand), dtype=torch.long, device=q.device)
+        for s in range(useg):
+            scores, _, slots = seg_scores(u[s * seg:(s + 1) * seg],
+                                          cdu[:, s * seg:(s + 1) * seg])
+            v_s, pos = _topk(scores, kc_seg)
+            allv = torch.cat([best_v, v_s], 1)
+            alls = torch.cat([best_slot, slots[pos.long()]], 1)
+            best_v, sel = _topk(allv, k_cand)
+            best_slot = alls.gather(1, sel.long())
+        best_i = torch.where(best_v > NEG_INF, sorted_ids[best_slot],
+                             torch.full_like(best_slot, -1, dtype=torch.int32))
+    if shadow is not None:
+        # compact refine shadow: dead slots map to -1, clamped to row 0; the
+        # re-mask below drops them (id -1 is never live)
+        s_codes, s_scales, _, s_pos = shadow
+        cp = s_pos[best_slot].clamp_min(0).long()               # (qc, k_cand)
+        srows = s_codes[cp].float()                             # (qc, kc, D)
+        if s_scales is not None:
+            srows = srows * s_scales[cp][..., None]
+        dots = torch.einsum("qd,qkd->qk", q, srows)
+        # the dequantized row's own norm, not the exact stored one: the
+        # mixed form's 2 q.(x - x̂) error scrambles near-tied neighbours
+        ssq = (srows * srows).sum(-1)
+        sc = 2.0 * dots - ssq if metric == "L2" else dots
+        sc = sc.masked_fill(~_live_rows(best_i, filt), NEG_INF)
+        best_v, sel = _topk(sc, min(k, k_cand))
+        best_i = best_i.gather(1, sel.long())
+    elif k_cand > k:
+        best_v, sel = _topk(best_v, k)
+        best_i = best_i.gather(1, sel.long())
+    return best_v, best_i
+
+
 def _coarse_union(qf, centroids, cent_sq, *, nprobe: int, metric: str,
                   union_cap: int, qc: int, union_mode: str):
-    """Steps 1-3: (perm, permuted + padded queries, u_all (steps, U))."""
+    """Steps 1-3: (perm, permuted + padded queries, u_all (steps, U), the
+    raw (Nq, nlist) q.centroid dots)."""
     nlist = centroids.shape[0]
     nq, d = qf.shape
     cdots = qf.to(centroids.dtype).float() @ centroids.float().T
@@ -223,7 +326,7 @@ def _coarse_union(qf, centroids, cent_sq, *, nprobe: int, metric: str,
             pp = torch.cat([pp, pp[-1:].expand(pad, nprobe)])
         steps = qp.shape[0] // qc
         u_all = _select_union(pp.view(steps, qc, nprobe), nlist, union_cap)
-    return perm, qp, u_all
+    return perm, qp, u_all, cdots
 
 
 def union_scan_args(qp, u_all, codes, sorted_sq, sorted_ids, *, k: int,
@@ -249,30 +352,42 @@ def union_scan_args(qp, u_all, codes, sorted_sq, sorted_ids, *, k: int,
 
 def fused_ivf_search_math(q, centroids, cent_sq, codes, scales, sorted_sq,
                           sorted_ids, spill=None, shadow=None, filt=None,
-                          pq=None, *, k: int, nprobe: int, window: int,
+                          pq=None, pq_w=None, pq_shadow=None, pq_r=None, *,
+                          k: int, nprobe: int, window: int,
                           metric: str, recall_target: float, union_cap: int,
                           qc: int, rerank_depth: int = 16,
                           union_mode: str = "minrank", backend: str = "xla",
                           pallas_cap: int = 2, pallas_variant: int = 1,
-                          interpret: bool = False
+                          interpret: bool = False, useg: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whole-batch fused search on resolved parameters. Returns (values,
     ids) on the final scale (L2: squared distance ascending; IP: score
     descending). ``recall_target`` and ``interpret`` are taken for the JAX
     signature: selection is exact, and the union scan picks kernel or plain
-    version from the device of its tensors."""
-    _not_ported(scales, shadow, pq)
-    nq = q.shape[0]
-    nprobe = min(nprobe, centroids.shape[0])
+    version from the device of its tensors.
+
+    PQ storage: ``pq`` (M, ksub, dsub) codebooks in the compute dtype, with
+    ``codes`` ((nlist+1)*window, M) uint8 residual codes; ``pq_w`` truthy
+    decodes through the kernel wrapper; ``pq_shadow`` the compact refine
+    shadow (rows, scales | None, exact norms, slot -> row); ``pq_r`` the OPQ
+    rotation (codes encode (x - c) @ R, so q.r̂ = (q @ R).dec); ``useg`` the
+    union segments (None: from the step budget)."""
+    _not_ported(scales, shadow)
+    nq, d = q.shape
+    nlist = centroids.shape[0]
+    nprobe = min(nprobe, nlist)
     qf = q.float()
     q_sq = (qf * qf).sum(-1)
-    perm, qp, u_all = _coarse_union(qf, centroids, cent_sq, nprobe=nprobe,
-                                    metric=metric, union_cap=union_cap, qc=qc,
-                                    union_mode=union_mode)
+    perm, qp, u_all, cdots = _coarse_union(
+        qf, centroids, cent_sq, nprobe=nprobe, metric=metric,
+        union_cap=union_cap, qc=qc, union_mode=union_mode)
     if backend == "pallas":
         if filt is not None:
             raise ValueError("backend='pallas' has no filter operand; filtered "
                              "searches run the plain chunk body")
+        if pq is not None:
+            raise ValueError("backend='pallas' has no PQ decode stage; PQ "
+                             "storage runs the PQ chunk body")
         args = union_scan_args(qp, u_all, codes, sorted_sq, sorted_ids, k=k,
                                window=window, metric=metric,
                                pallas_cap=pallas_cap,
@@ -284,6 +399,26 @@ def fused_ivf_search_math(q, centroids, cent_sq, codes, scales, sorted_sq,
         else:
             vals_p, ids_p = decode_topk(packed, args["u_all"], sorted_ids,
                                         window=window, k=k)
+    elif pq is not None:
+        steps = u_all.shape[0]
+        # the residual shift: raw q.c of each chunk's union lists, the
+        # sentinel clamped (its rows carry id -1 and are masked anyway)
+        cd_p = cdots[perm]
+        if steps * qc > nq:
+            cd_p = torch.cat([cd_p, cd_p[-1:].expand(steps * qc - nq, nlist)])
+        cd_u = cd_p.view(steps, qc, nlist).gather(
+            2, u_all.long().clamp_max(nlist - 1)[:, None, :].expand(steps, qc, -1))
+        if useg is None:
+            useg = _pq_union_segments(u_all.shape[1], window, codes.shape[1], d, qc)
+        qr = qp @ pq_r if pq_r is not None else qp
+        parts = [_chunk_body_pq(qp[s * qc:(s + 1) * qc], qr[s * qc:(s + 1) * qc],
+                                u_all[s], cd_u[s], codes, sorted_sq, sorted_ids, pq,
+                                k=k, window=window, metric=metric,
+                                rerank_depth=rerank_depth, filt=filt, pq_w=bool(pq_w),
+                                shadow=pq_shadow, useg=useg)
+                 for s in range(steps)]
+        vals_p = torch.cat([p[0] for p in parts])
+        ids_p = torch.cat([p[1] for p in parts])
     else:
         parts = [_chunk_body(qp[s * qc:(s + 1) * qc], u_all[s], codes,
                              sorted_sq, sorted_ids, k=k, window=window,
@@ -327,6 +462,7 @@ def _spill_and_finalize(best_v, best_i, qf, q_sq, spill, metric, k, nq,
 
 def fused_ivf_search(q, centroids, cent_sq, codes, scales, sorted_sq,
                      sorted_ids, spill=None, shadow=None, filt=None, pq=None,
+                     pq_w=None, pq_shadow=None, pq_r=None,
                      *, k: int, nprobe: int, window: int, metric: str = "L2",
                      recall_target: float = 0.995,
                      union_cap: Optional[int] = None,
@@ -338,21 +474,25 @@ def fused_ivf_search(q, centroids, cent_sq, codes, scales, sorted_sq,
     "auto" picks the union-scan kernel on an eligible CUDA index (and then
     launches it or raises), else the plain chunk body; "xla" / "pallas"
     force a route ("pallas" on a CPU index runs the kernel's plain
-    version). A filter routes "auto" to the plain chunk body.
+    version). A filter or PQ storage routes "auto" to the plain chunk body;
+    PQ's decode takes the kernel wrapper when ``pq_w`` is truthy.
     Returns (values, indices), (Nq, k)."""
-    _not_ported(scales, shadow, pq)
+    _not_ported(scales, shadow)
     nq, dim = q.shape
     resolved = resolve_fused_dispatch(
         nq=nq, dim=dim, nlist=centroids.shape[0], window=window,
         code_bytes=codes.element_size(), quantized=False, has_shadow=False,
-        has_pq=False, has_filter=filt is not None, nprobe=nprobe,
+        has_pq=pq is not None, has_filter=filt is not None, nprobe=nprobe,
         union_cap=union_cap, qc=qc, backend=backend,
         platform=codes.device.type)
+    useg = (_pq_union_segments(resolved["union_cap"], window, codes.shape[1], dim,
+                               resolved["qc"]) if pq is not None else None)
     return fused_ivf_search_math(
         q, centroids, cent_sq, codes, None, sorted_sq, sorted_ids, spill,
-        None, filt, None, k=k, nprobe=resolved["nprobe"], window=window,
-        metric=metric, recall_target=recall_target,
+        None, filt, pq, pq_w, pq_shadow, pq_r, k=k, nprobe=resolved["nprobe"],
+        window=window, metric=metric, recall_target=recall_target,
         union_cap=resolved["union_cap"], qc=resolved["qc"],
         rerank_depth=rerank_depth, union_mode=union_mode,
         backend=resolved["backend"], pallas_cap=pallas_cap,
-        pallas_variant=pallas_variant, interpret=resolved["interpret"])
+        pallas_variant=pallas_variant, interpret=resolved["interpret"],
+        useg=useg)

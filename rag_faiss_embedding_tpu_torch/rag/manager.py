@@ -11,10 +11,10 @@ package's ``VectorStore`` and ``EmbeddingPipeline`` on ``device``:
 - ``load_indices()``, ``search_similar_documents()``, ``delete_documents()``,
   ``reset()``.
 
-``index_kind`` "flat" and "ivf" (dense IVF-Flat) are ported; "pq" and IVF-PQ
-(``ivf_pq_m > 0``) come with slice 4. Data files (``documents.db``,
-``index.tpu`` + ``.mapping``, ``vocab.txt``, ``encoder_params.npz``) are the
-JAX package's formats.
+``index_kind`` "flat", "ivf" (IVF-Flat, or IVF-PQ with ``ivf_pq_m > 0``) and
+"pq" build their index on ``device``, as the JAX manager builds them. Data
+files (``documents.db``, ``index.tpu`` + ``.mapping``, ``vocab.txt``,
+``encoder_params.npz``) are the JAX package's formats.
 """
 
 from __future__ import annotations
@@ -31,12 +31,11 @@ from rag_faiss_embedding_tpu.store.database import Database
 
 from .. import default_device
 from ..index.ivf import IVFFlatIndex
+from ..index.pq import PQIndex
 from ..index.vector_store import VectorStore
 from ..models.encoder import EmbeddingPipeline
 
 logger = get_logger(__name__)
-
-_LATER_KINDS = {"pq": "slice 4 (PQ)"}
 
 
 class RAGManager:
@@ -49,13 +48,6 @@ class RAGManager:
     ):
         self.config = config or Config.from_env()
         self.index_kind = index_kind or self.config.index_kind
-        if self.index_kind in _LATER_KINDS:
-            raise NotImplementedError(
-                f"index_kind={self.index_kind!r} is not ported yet "
-                f"({_LATER_KINDS[self.index_kind]})")
-        if self.index_kind == "ivf" and self.config.ivf_pq_m:
-            raise NotImplementedError(
-                "ivf_pq_m > 0 (IVF-PQ) is not ported yet (slice 4, the PQ tier)")
         self.device = torch.device(device) if device is not None else default_device()
         self.config.setup_directories()
         self.db = Database(self.config.db_path)
@@ -79,8 +71,11 @@ class RAGManager:
                 metric=self.config.index_metric,
                 dtype=self.config.index_dtype,
                 balance=self.config.ivf_balance,
+                pq_m=self.config.ivf_pq_m or None,
                 device=self.device,
             )
+        elif self.index_kind == "pq":
+            index = PQIndex(dim, metric=self.config.index_metric, device=self.device)
         self.vector_store = VectorStore(
             dimension=dim,
             metric=self.config.index_metric,

@@ -127,12 +127,12 @@ def test_pairwise_matches_jax(rng):
 
 def test_approx_selector_is_not_ported(rng, tmp_path):
     """The plain scan takes no selector; the index, which owns the choice,
-    rejects "approx" and names the slice that brings it."""
+    rejects "approx" and names the tier that brings it."""
     from rag_faiss_embedding_tpu_torch.index import VectorStore
 
     db = rng.standard_normal((10, 4)).astype(np.float32)
     with pytest.raises(TypeError):
         TD.exact_search(db[:1], db, 2, selector="approx")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="the int8 tier"):
         VectorStore(dimension=4, selector="approx",
                     index_path=tmp_path / "index.tpu", device="cpu")

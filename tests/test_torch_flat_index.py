@@ -91,9 +91,9 @@ def test_reset_and_empty(rng):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="the int8 tier"):
         TFlat(8, dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="the int8 tier"):
         TFlat(8, selector="approx", device="cpu")
     with pytest.raises(ValueError):
         TFlat(8, metric="cosine", device="cpu")
@@ -207,7 +207,18 @@ def test_vector_store_sequential_fallback_and_kinds(rng, tmp_path):
     assert tstore.doc_ids == [0, 1, 2, 3, 4]
     _, ids = tstore.search(vecs[3], k=1)
     assert ids == [3]
-    # "ivf" loads since slice 2; the PQ kind still raises, naming its slice
-    np.savez(tmp_path / "pq.npz", kind="pq", dim=8, metric="L2")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tstore.load_index(tmp_path / "pq.npz")
+    # a JAX-saved "pq" index loads by its kind; the sharded kinds still
+    # raise, naming their tier
+    from rag_faiss_embedding_tpu.index.pq import PQIndex as JPQ
+    from rag_faiss_embedding_tpu_torch.index.pq import PQIndex as TPQ
+
+    pq = JPQ(8, m=4, ksub=4, compute_dtype="f32", train_iters=2)
+    pq.add(vecs)
+    np.savez(tmp_path / "pq.npz", **{k: np.asarray(v) for k, v in pq.state_dict().items()})
+    tstore.load_index(tmp_path / "pq.npz")
+    assert isinstance(tstore.index, TPQ) and tstore.ntotal == 5
+    assert tstore.doc_ids == [0, 1, 2, 3, 4]
+    np.testing.assert_array_equal(tstore.index.vectors(), pq.vectors())
+    np.savez(tmp_path / "sh.npz", kind="sharded_ivf", dim=8, metric="L2")
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        tstore.load_index(tmp_path / "sh.npz")

@@ -303,15 +303,17 @@ def test_probe_scan_oracle_agrees_with_fused_full_probe():
 
 
 def test_not_ported_yet_raise_naming_the_slice():
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="the int8 tier"):
         TIVF(D, dtype="int8")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="the int8 tier"):
         TIVF(D, rerank=True)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TIVF(D, pq_m=16)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    # IVF-PQ is ported: pq_m gives uint8 code storage, and with it rerank
+    # keeps a refine shadow
+    pq = TIVF(D, pq_m=16, rerank=True, device="cpu")
+    assert pq.dtype == torch.uint8 and pq.rerank and pq.refine_dtype == "int8"
+    with pytest.raises(NotImplementedError, match="build_chunked"):
         TIVF(D).build_chunked(None, 10)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="the int8 tier"):
         tscan.fused_ivf_search(torch.zeros(1, D), torch.zeros(2, D), torch.zeros(2),
                                torch.zeros(3 * 128, D), torch.ones(3 * 128),
                                torch.zeros(3 * 128), torch.zeros(3 * 128, dtype=torch.int32),

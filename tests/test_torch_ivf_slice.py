@@ -101,6 +101,22 @@ def test_ivf_filtered_search_and_delete_match_jax(managers, tmp_path):
 
 
 def test_pq_and_ivf_pq_still_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TManager(config=Config(base_dir=tmp_path, index_kind="ivf", ivf_pq_m=8),
-                 device="cpu")
+    """The PQ kinds no longer raise: each manager builds its index as the
+    JAX manager does (tests/test_torch_pq_slice.py drives them)."""
+    from rag_faiss_embedding_tpu_torch.index import PQIndex
+    from rag_faiss_embedding_tpu_torch.models import EmbeddingPipeline, MiniLMConfig
+
+    small = MiniLMConfig(vocab_size=256, hidden_size=16, num_layers=1, num_heads=2,
+                         intermediate_size=32, max_position_embeddings=64)
+    for kind, extra in (("ivf", {"ivf_pq_m": 8}), ("pq", {})):
+        cfg = Config(base_dir=tmp_path / kind, model_name="offline-test",
+                     index_kind=kind, **extra)
+        emb = EmbeddingPipeline(cfg=small, max_seq_length=64, device="cpu",
+                                vocab_path=cfg.data_dir / "vocab.txt")
+        m = TManager(config=cfg, embedder=emb, device="cpu")
+        index = m.vector_store.index
+        if kind == "pq":
+            assert isinstance(index, PQIndex) and index.m == 2
+        else:
+            assert isinstance(index, IVFFlatIndex) and index.pq_m == 8
+        m.cleanup()
