@@ -10,7 +10,8 @@ Phases, one JSON object per line:
 1. env: torch / CUDA versions and the card (``nvidia-smi``'s name and power
    limit, also printed raw on the line after it).
 2. build: ``nvcc`` builds ``rag_faiss_embedding_tpu_torch/csrc/flat_scan.cu``,
-   ``csrc/union_scan.cu`` and ``csrc/pq_decode.cu`` for sm_90a, all at once.
+   ``csrc/union_scan.cu``, ``csrc/pq_decode.cu``, ``csrc/fused_proto.cu`` and
+   ``csrc/kernel_probe.cu`` for sm_90a, all at once.
 3. kernel: the flat-scan kernel against its plain torch version on the same
    CUDA tensors, over a grid of metrics, dtypes, Q, N, D and k, plus edge
    cases, rows wider than a shared-memory tile, and the 1,048,576 x 384
@@ -35,7 +36,8 @@ Phases, one JSON object per line:
    plain chunk body; recall@10 of each against the exact float32 flat top-10
    (the port's ``FlatIndex``); each kernel against ``union_scan_reference``
    on the same card tensors at those shapes, CUDA-event times of both; then
-   removed rows under variant 2 and k past the candidates.
+   removed rows under variant 2 and k past the candidates. Before those,
+   on the untouched index, phase 10.
 7. ivf_slice: ``RAGManager(index_kind="ivf", ivf_nlist=64)`` over the same
    4,096 documents as the slice phase, the same requests, save and reload,
    checked against the saved index searched on the CPU through the kernel's
@@ -60,13 +62,33 @@ Phases, one JSON object per line:
    own ADC distance to the decoded reconstruction); the kernel against its
    plain version at the path's shapes, and each manager's trace.
 
+10. fused_proto: the IVF prototype (``benchmarks.fused_proto.search``, UCAP =
+    QC = 256, BB 16, KP 10, k 10) over phase 6's index at Q = 1,024, through
+    K5 and through its plain version: recall@10 of both against the exact
+    top-10 (the IVF gate), identical results; K5 against
+    ``block_topk_reference`` bit for bit at the path's shapes, kp 1 and 32,
+    a cell with 3 live rows and a row twice in one cell; CUDA-event times
+    of K5, its plain version, both searches and ``IVFFlatIndex.search``.
+11. kernel_probe: ``benchmarks.kernel_probe.run`` at the script's shape
+    (synthetic blocks, nlist 8,192, window 256, D 384, QC 256, U 260, BB 10,
+    CAP 2, 4 chunks): each variant timed, then held to ``probe_reference``
+    bit for bit, ``chain`` to ``temps``, and a crafted negative-subnormal
+    score that ``temps_f32`` keeps as a NaN.
+12. bounds: each kernel's bound at the 1M shapes (the least time for its
+    bytes at 3.35 TB/s or its operations at the peak of the unit the exact
+    result needs), beside the times the earlier phases took there (K4 at 1M
+    rows with ``F.embedding``, from phase 8's grid).
+
 Then a ``{"kernels": [...]}`` line (launch counts from each kernel's path:
 the flat scan's from the slice, union-scan variant 1's from the IVF slice,
-variant 2's from the IVF kernel phase, the PQ decode's from the PQ slice)
+variant 2's from the IVF kernel phase, the PQ decode's from the PQ slice,
+K5's from the prototype search, K6's from the probe's run; each with its
+bound at the path's shape and the one-call library time where one exists)
 and, last, ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero without the
-last line. It needs no network and no JAX; it exits non-zero where no CUDA
-device is present or the port's package is not beside it.
+last line. It needs no network and loads nothing of JAX or the JAX
+package; it exits non-zero where no CUDA device is present or the port's
+package is not beside it.
 """
 
 import concurrent.futures
@@ -91,6 +113,18 @@ PQ_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/pq_decode.cu"
 PQ_REPLACES = "rag_faiss_embedding_tpu/ops/pallas_pq.py:59"
 IVF_N, IVF_DIM, IVF_MODES, IVF_NLIST, IVF_Q = 1 << 20, 384, 8192, 8192, 1024
 RECALL_MIN, RECALL_SLACK = 0.95, 0.005
+FP_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/fused_proto.cu"
+FP_REPLACES = "benchmarks/pallas_fused_proto.py:71"
+KP_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/kernel_probe.cu"
+KP_REPLACES = "benchmarks/pallas_kernel_probe.py:57"
+# The card's published peaks (H100 SXM, dense): HBM bytes per second, and
+# operations per second of the unit an exact result needs: FP32 outside the
+# tensor cores for float32 storage, bf16 tensor cores (float32 accumulation,
+# exact products) for bf16 storage.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# top-level packages the port must never load
+FORBIDDEN_MODULES = ("jax", "flax", "rag_faiss_embedding_tpu")
 N_DOCS = 4096
 SEED = 0
 # Tolerances of kernel vs plain: both accumulate in float32 in different
@@ -382,7 +416,7 @@ def slice_summary(run, phase: str, self_hits: int, top5_mismatch: int,
 def slice_phase(torch, F, workdir: Path):
     import numpy as np
 
-    from rag_faiss_embedding_tpu.core.config import Config
+    from rag_faiss_embedding_tpu_torch.core.config import Config
     from rag_faiss_embedding_tpu_torch.index import FlatIndex
     from rag_faiss_embedding_tpu_torch.models import EmbeddingPipeline
     from rag_faiss_embedding_tpu_torch.models import convert
@@ -609,10 +643,40 @@ def union_check(torch, U, idx, args, k: int):
     return err, int((ki != pi).sum())
 
 
-def recall_at(ids, truth) -> float:
-    """Mean share of each row's true top-k found in ``ids``."""
-    hit = (ids[:, :, None].long() == truth[:, None, :].long()).any(-1)
-    return float(hit.float().sum(1).mean() / truth.shape[1])
+def scan_work(torch, qs, u_all, ids2, nq: int, out_bytes: int) -> dict:
+    """What a union-block scan over (chunks, qc, D) queries ``qs``, of which
+    the first ``nq`` are real (the rest copies that pad the last chunk), and
+    blocks of ids ``ids2`` (blocks, window) must do: the bytes it moves
+    (each distinct block's rows, norms and ids read once, the real queries
+    and the union read, ``out_bytes`` written) and its operations (a
+    multiply and an add per dimension for each real query of a chunk and
+    each live row of the chunk's distinct blocks: the sentinel block and
+    dead rows need none), with the storage dtype whose peak rate applies."""
+    chunks, qc, d = qs.shape
+    item = qs.element_size()
+    blocks = int(torch.unique(u_all).numel())
+    live = (ids2 >= 0).sum(1)
+    pairs = sum(min(max(nq - c * qc, 0), qc) * int(live[torch.unique(u_all[c]).long()].sum())
+                for c in range(chunks))
+    return {"bytes": blocks * ids2.shape[1] * (d * item + 8) + nq * d * item
+            + u_all.numel() * 4 + out_bytes,
+            "flops": 2 * pairs * d, "dtype": str(qs.dtype).removeprefix("torch.")}
+
+
+def union_work(torch, U, args, nq: int) -> dict:
+    """``scan_work`` of one union-scan call for ``nq`` real queries."""
+    chunks, qc, _ = args["qs"].shape
+    lanes = 2 * U.KPAD if args["ktop"] else args["cap"] * args["window"]
+    return scan_work(torch, args["qs"], args["u_all"],
+                     args["sorted_ids"].view(-1, args["window"]), nq, chunks * qc * lanes * 4)
+
+
+def flat_work(q: int, n: int, d: int, k: int) -> dict:
+    """What the exact float32 flat scan of ``q`` queries over ``n`` rows of
+    ``d`` must do: rows, norms and queries read once, (values, ids) of the
+    top ``k`` written; a multiply and an add per query, row and dimension."""
+    return {"bytes": n * (d + 1) * 4 + q * d * 4 + q * k * 8, "flops": 2 * q * n * d,
+            "dtype": "float32"}
 
 
 def search_profile(torch, idx, q, reps: int) -> dict:
@@ -659,14 +723,14 @@ def bench_rows(torch):
     return db, queries
 
 
-def ivf_kernel_phase(torch):
+def ivf_build(torch):
+    """bench.py's 1M rows in ``IVFFlatIndex(384, nlist=8192,
+    dtype="bfloat16", train_iters=10, balance="reassign")``: (index, build
+    seconds, the 1,024 queries, their exact float32 top-10)."""
     from rag_faiss_embedding_tpu_torch.index import FlatIndex, IVFFlatIndex
-    from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
-    from rag_faiss_embedding_tpu_torch.ops import union_scan as U
 
     cuda = torch.device("cuda")
     db, queries = bench_rows(torch)
-
     t0 = time.perf_counter()
     idx = IVFFlatIndex(IVF_DIM, nlist=IVF_NLIST, dtype="bfloat16", train_iters=10,
                        balance="reassign", device=cuda)
@@ -678,6 +742,14 @@ def ivf_kernel_phase(torch):
     _, truth = flat.search(queries, 10)  # exact float32 top-10
     del flat, db
     torch.cuda.empty_cache()
+    return idx, build_s, queries, truth
+
+
+def ivf_kernel_phase(torch, idx, build_s, queries, truth):
+    from rag_faiss_embedding_tpu_torch.benchmarks.fused_proto import recall_at
+    from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
+    from rag_faiss_embedding_tpu_torch.ops import union_scan as U
+
     single = queries[:64]
 
     U.union_scan.launches = 0  # count the path's launches only
@@ -725,6 +797,7 @@ def ivf_kernel_phase(torch):
                     "qc": args["qs"].shape[1], "U": args["u_all"].shape[1],
                     "window": args["window"], "ktop": args["ktop"],
                     "max_abs_err": err, "id_mismatch": mism,
+                    **union_work(torch, U, args, nq),
                     "ms": cuda_ms(torch, lambda: U.union_scan(**args)),
                     "plain_ms": cuda_ms(torch, lambda: U.union_scan_reference(**args)),
                 })
@@ -759,7 +832,7 @@ def ivf_kernel_phase(torch):
 
 # ------------------------------------------------------------------ phase 7
 def ivf_slice_phase(torch, workdir: Path):
-    from rag_faiss_embedding_tpu.core.config import Config
+    from rag_faiss_embedding_tpu_torch.core.config import Config
     from rag_faiss_embedding_tpu_torch.index import IVFFlatIndex
     from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
     from rag_faiss_embedding_tpu_torch.ops import union_scan as U
@@ -807,6 +880,7 @@ def ivf_slice_phase(torch, workdir: Path):
             "chunks": args["qs"].shape[0], "qc": args["qs"].shape[1],
             "U": args["u_all"].shape[1], "window": args["window"], "D": index.dim,
             "k": 5, "nprobe": disp["nprobe"], "max_abs_err": err, "id_mismatch": mism,
+            **union_work(torch, U, args, q.shape[0]),
             "ms": cuda_ms(torch, lambda: U.union_scan(**args)),
             "plain_ms": cuda_ms(torch, lambda: U.union_scan_reference(**args)),
         }
@@ -846,11 +920,29 @@ def decode_check(torch, PD, cb, codes):
             cuda_ms(torch, lambda: PD.decode_reference(cb, codes)))
 
 
+def decode_library(torch, PD, cb, codes) -> dict:
+    """The one PyTorch call that computes K4's function, timed on the same
+    inputs (the index into the flattened codebook made outside the timing;
+    the call must return K4's bits), and the bytes the decode must move."""
+    import torch.nn.functional as Fn
+
+    m, ksub, dsub = cb.shape
+    flat = codes.long() + torch.arange(m, device=codes.device) * ksub
+    table = cb.reshape(m * ksub, dsub)
+    if not torch.equal(Fn.embedding(flat, table).reshape(codes.shape[0], m * dsub),
+                       PD.decode(cb, codes)):
+        raise AssertionError("F.embedding does not compute the PQ decode")
+    return {"library_ms": cuda_ms(torch, lambda: Fn.embedding(flat, table)),
+            "bytes": codes.numel() * (1 + dsub * cb.element_size())
+            + cb.numel() * cb.element_size()}
+
+
 def pq_decode_grid(torch, PD):
     """K4 over D = 384 with M 16 / 48 / 96 and D = 768 with M 96, ksub 16 and
-    256, bf16 and f32 codebooks, N from 0 to 1,048,576."""
+    256, bf16 and f32 codebooks, N from 0 to 1,048,576; at 1,048,576 rows of
+    M 48 ksub 256 bf16 also its one-call library equivalent."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    cases, max_err = [], 0.0
+    cases, max_err, at_1m = [], 0.0, None
     for d, m in ((384, 16), (384, 48), (384, 96), (768, 96)):
         for ksub in (16, 256):
             for dtype in (torch.bfloat16, torch.float32):
@@ -863,8 +955,11 @@ def pq_decode_grid(torch, PD):
                     cases.append([d, m, ksub, str(dtype).removeprefix("torch."), n,
                                   PD.plan(m, ksub, d // m, dtype)["groups"], err, ms,
                                   plain_ms])
+                    if (d, m, ksub, dtype, n) == (384, 48, 256, torch.bfloat16, 1 << 20):
+                        at_1m = {"ms": ms, "plain_ms": plain_ms,
+                                 **decode_library(torch, PD, cb, codes)}
     torch.cuda.empty_cache()
-    return cases, max_err
+    return cases, max_err, at_1m
 
 
 def pq_path_codes(S, idx, q, nprobe=None):
@@ -889,6 +984,8 @@ def pq_routes(torch, idx, queries, truth, nprobe=None):
     through the kernel and the plain decode. The two routes must return the
     same bits (the same decoded values feed the same product). One row per
     route: recall@10 against ``truth`` and host-clock search times."""
+    from rag_faiss_embedding_tpu_torch.benchmarks.fused_proto import recall_at
+
     kw = {} if nprobe is None else {"nprobe": nprobe}
     single = queries[:64]
     rows, outs = [], []
@@ -920,7 +1017,7 @@ def pq_kernel_phase(torch):
     from rag_faiss_embedding_tpu_torch.ops import pq_decode as PD
 
     cuda = torch.device("cuda")
-    grid, max_err = pq_decode_grid(torch, PD)
+    grid, max_err, at_1m = pq_decode_grid(torch, PD)
     db, queries = bench_rows(torch)
     flat = FlatIndex(IVF_DIM, capacity=IVF_N, device=cuda)
     flat.add(db)
@@ -993,7 +1090,8 @@ def pq_kernel_phase(torch):
     if launches == 0:
         raise AssertionError("the PQ indexes never launched pq_decode")
     return {"phase": "pq_kernel", "N": IVF_N, "D": IVF_DIM, "decode_columns": PQ_DECODE_COLUMNS,
-            "decode_cases": grid, "indexes": indexes, "path_cases": cases,
+            "decode_cases": grid, "decode_1M_M48_bf16": at_1m, "indexes": indexes,
+            "path_cases": cases,
             "path_launches": launches}, max_err
 
 
@@ -1004,7 +1102,7 @@ def pq_slice_run(torch, workdir: Path, label: str, **index_kw):
     Each returned id must carry its own ADC distance, recomputed in float64
     against the decoded reconstruction (rtol 1e-3: bf16 compute). The codec
     blurs near neighbours, so self-retrieval is recorded, not gated."""
-    from rag_faiss_embedding_tpu.core.config import Config
+    from rag_faiss_embedding_tpu_torch.core.config import Config
     from rag_faiss_embedding_tpu_torch.index import IVFFlatIndex, PQIndex
     from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
     from rag_faiss_embedding_tpu_torch.ops import pq_decode as PD
@@ -1068,7 +1166,7 @@ def pq_slice_run(torch, workdir: Path, label: str, **index_kw):
         shapes[f"Q={q.shape[0]}"] = {"rows": codes.shape[0], "M": codes.shape[1],
                                      "dtype": str(cb.dtype).removeprefix("torch."),
                                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                     **extra}
+                                     **decode_library(torch, PD, cb, codes), **extra}
     trace = trace_phase(torch, run.engine, queries, batch_queries)
     trace["phase"] = f"{label}_trace"
     run.manager.cleanup()
@@ -1097,6 +1195,212 @@ def pq_slice_phase(torch):
     return traces, out
 
 
+# ----------------------------------------------------------------- phase 10
+def bound(bytes_moved: float, flops: float, dtype: str):
+    """The least time the card could take for the work, in ms, and what
+    bounds it: bytes over HBM_BYTES_PER_S or operations over the peak rate
+    of the unit the exact result needs (PEAK_FLOPS)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal shapes and equal bits (NaN payloads included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def block_topk_check(torch, FP, args, kp: int) -> float:
+    """K5 against its plain version on the same card tensors, bit for bit
+    (the plain version sums the same exact bf16 products in the kernel's
+    order); returns the max |score| difference over live slots (0)."""
+    kv, ki = FP.block_topk(**args, kp=kp)
+    torch.cuda.synchronize()
+    pv, pi = FP.block_topk_reference(**args, kp=kp)
+    if not (same_bits(torch, kv, pv) and torch.equal(ki, pi)):
+        raise AssertionError(f"block_topk differs from its plain version (kp {kp})")
+    live = pv > -3.4e38
+    return float((kv - pv).abs()[live].max()) if live.any() else 0.0
+
+
+def fused_proto_phase(torch, idx, queries, truth):
+    """The prototype search (``benchmarks.fused_proto.search``: UCAP = QC =
+    256, BB 16, KP 10, k 10) over the 1M index at Q = 1,024, through K5 and
+    through its plain version; K5 against the plain version at the path's
+    shapes and at edge cases; CUDA-event times."""
+    from rag_faiss_embedding_tpu_torch.benchmarks import fused_proto as BF
+    from rag_faiss_embedding_tpu_torch.ops import fused_proto as FP
+
+    FP.block_topk.launches = 0  # count the path's launches only
+    vals, ids = BF.search(queries, idx)
+    torch.cuda.synchronize()
+    launches = FP.block_topk.launches
+    if launches == 0:
+        raise AssertionError("the prototype search never launched block_topk")
+    pvals, pids = BF.search(queries, idx, cell_topk=FP.block_topk_reference)
+    routes = {"kernel": BF.recall_at(ids, truth), "plain": BF.recall_at(pids, truth)}
+    for name, rec in routes.items():
+        if rec < RECALL_MIN or rec < routes["plain"] - RECALL_SLACK:
+            raise AssertionError(f"prototype search through the {name} route: recall@10 "
+                                 f"{rec} (plain {routes['plain']})")
+    if not (ids.shape == (IVF_Q, 10) and bool((ids >= 0).all())
+            and bool(torch.isfinite(vals).all()) and bool((vals[:, 1:] >= vals[:, :-1]).all())):
+        raise AssertionError("the prototype search returned missing or unsorted slots")
+    if not (torch.equal(ids, pids) and same_bits(torch, vals, pvals)):
+        raise AssertionError("the prototype search differs between K5 and its plain version")
+
+    # K5 against its plain version: the path's shapes, kp 1 and the largest,
+    # a cell with fewer than kp live rows, the same row twice in one cell
+    _, _, args = BF.cell_args(queries, idx)
+    cases, max_err = [], 0.0
+    for kp in (BF.KP, 1, FP.KP_MAX):
+        err = block_topk_check(torch, FP, args, kp)
+        max_err = max(max_err, err)
+        cases.append({"case": "path", "kp": kp, "max_abs_err": err})
+    cell = args["u_all"][0, :BF.BB].long()
+    sparse = dict(args, ids2=args["ids2"].clone())
+    sparse["ids2"][cell] = -1
+    sparse["ids2"][cell[1], :3] = torch.arange(3, dtype=torch.int32, device="cuda") + idx.ntotal
+    kv, ki = FP.block_topk(**sparse, kp=BF.KP)
+    if not bool(((ki[0, 0] >= 0).sum(-1) == 3).all()):
+        raise AssertionError("a cell with 3 live rows must return 3 ids per query")
+    max_err = max(max_err, block_topk_check(torch, FP, sparse, BF.KP))
+    cases.append({"case": "3 live rows in a cell", "kp": BF.KP})
+    a = next(int(x) for x in cell if bool((args["ids2"][x] >= 0).any()))
+    b = next(int(x) for x in cell if int(x) != a)
+    live = int(torch.nonzero(args["ids2"][a] >= 0)[0])
+    dup = dict(args, codes3=args["codes3"].clone(), sq2=args["sq2"].clone(),
+               ids2=args["ids2"].clone())
+    dup["codes3"][a, live] = args["qs"][0, 0]  # close to chunk 0's first query
+    dup["sq2"][a, live] = dup["codes3"][a, live].float().pow(2).sum()
+    for name in ("codes3", "sq2", "ids2"):
+        dup[name][b, 5] = dup[name][a, live]
+    kv, ki = FP.block_topk(**dup, kp=BF.KP)
+    twice = int(dup["ids2"][a, live])
+    if int(ki[0, 0, 0, 0]) != twice or bool(((ki == twice).sum(-1) > 1).any()):
+        raise AssertionError("a row twice in one cell must come back once")
+    max_err = max(max_err, block_topk_check(torch, FP, dup, BF.KP))
+    cases.append({"case": "same row twice in a cell", "kp": BF.KP})
+    del sparse, dup
+    torch.cuda.empty_cache()
+
+    chunks, qc, _ = args["qs"].shape
+    work = scan_work(torch, args["qs"], args["u_all"], args["ids2"], chunks * qc,
+                     chunks * (BF.UCAP // BF.BB) * qc * BF.KP * 8)
+    idx.backend, idx.pallas_variant = "auto", 1
+    return {
+        "phase": "fused_proto", "N": IVF_N, "D": IVF_DIM, "nlist": idx.nlist,
+        "window": idx._window, "Q": IVF_Q, "ucap": BF.UCAP, "qc": BF.QC, "bb": BF.BB,
+        "kp": BF.KP, "k": BF.K, "recall@10": routes, "path_launches": launches,
+        "kernel_cases": cases, "max_abs_err": max_err, **work, **work_bound(work),
+        "ms": cuda_ms(torch, lambda: FP.block_topk(**args, kp=BF.KP)),
+        "plain_ms": cuda_ms(torch, lambda: FP.block_topk_reference(**args, kp=BF.KP), 3, 1),
+        "search_ms": cuda_ms(torch, lambda: BF.search(queries, idx)),
+        "plain_search_ms": cuda_ms(
+            torch, lambda: BF.search(queries, idx, cell_topk=FP.block_topk_reference), 3, 1),
+        "ivf_search_k2_ms": cuda_ms(torch, lambda: idx.search(queries, 10)),
+    }
+
+
+def kernel_probe_phase(torch):
+    """``benchmarks.kernel_probe.run`` at the script's shape (every variant
+    timed on the same synthetic blocks), then each variant against its
+    plain version bit for bit, ``chain`` against ``temps``, and a crafted
+    negative-subnormal score that ``temps_f32`` meets as a NaN."""
+    from rag_faiss_embedding_tpu_torch.benchmarks import kernel_probe as BK
+    from rag_faiss_embedding_tpu_torch.ops import kernel_probe as KP
+    from rag_faiss_embedding_tpu_torch.ops.union_scan import packing_bits
+
+    inputs = BK.make_inputs(device=torch.device("cuda"), seed=SEED)
+    KP.probe.launches = 0  # count the path's launches only
+    KP.probe.variant_launches = dict.fromkeys(KP.VARIANTS, 0)
+    rows = BK.run(inputs)
+    torch.cuda.synchronize()
+    launches = dict(KP.probe.variant_launches)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a probe variant was never launched: {launches}")
+
+    kw = dict(bb=BK.BB, cap=BK.CAP)
+    outs, plain_ms = {}, {}
+    for variant in KP.VARIANTS:
+        outs[variant] = KP.probe(variant, **inputs, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(outs[variant], KP.probe_reference(variant, **inputs, **kw)):
+            raise AssertionError(f"probe {variant} differs from its plain version")
+        plain_ms[variant] = cuda_ms(
+            torch, lambda: KP.probe_reference(variant, **inputs, **kw), 3, 1)
+    if not torch.equal(outs["chain"], outs["temps"]):
+        raise AssertionError("probe chain and temps differ")
+    mask = (1 << packing_bits(BK.U)) - 1
+    if not bool(((outs["none"] & mask) == BK.U - 1).all()):
+        raise AssertionError("probe none must hold the last block's tile")
+
+    # a zero query row against a norm of 1e-39: the score -1e-39 is a
+    # negative subnormal, its packed int a NaN as a float
+    crafted = dict(inputs, qs=inputs["qs"].clone(), aux3=inputs["aux3"].clone())
+    crafted["qs"][0, 0] = 0
+    blk = int(inputs["u_all"][0, 2])
+    crafted["aux3"][blk, 0, 7] = torch.tensor(1e-39, dtype=torch.float32,
+                                              device="cuda").view(torch.int32)
+    for variant in KP.VARIANTS:
+        if not torch.equal(KP.probe(variant, **crafted, **kw),
+                           KP.probe_reference(variant, **crafted, **kw)):
+            raise AssertionError(f"probe {variant} differs from its plain version "
+                                 "on the subnormal case")
+    nan_bins = KP.probe("temps_f32", **crafted, **kw)[0, 0, [7, 7 + BK.WINDOW]]
+    if not bool(torch.isnan(nan_bins.view(torch.float32)).all()):
+        raise AssertionError("temps_f32 lost the subnormal score's NaN")
+    del crafted
+
+    work = scan_work(torch, inputs["qs"], inputs["u_all"], inputs["aux3"][:, 1],
+                     BK.CHUNKS * BK.QC, outs["chain"].numel() * 4)
+    init_share = float((outs["temps_f32"] == outs["chain"]).float().mean())
+    return {
+        "phase": "kernel_probe", "nlist": BK.NLIST, "window": BK.WINDOW, "D": BK.DIM,
+        "qc": BK.QC, "U": BK.U, "bb": BK.BB, "cap": BK.CAP, "chunks": BK.CHUNKS,
+        "reps": BK.REPS, "path_launches": launches, **work, **work_bound(work),
+        "max_abs_err": 0.0,
+        "temps_f32_bins_equal_to_chain": init_share,
+        "variants": {r["variant"]: {"ms": r["ms_per_batch"], "plain_ms": plain_ms[r["variant"]]}
+                     for r in rows},
+    }
+
+
+def work_bound(work: dict) -> dict:
+    """``bound`` of a ``scan_work`` / ``flat_work`` dict, as its keys."""
+    return dict(zip(("bound_ms", "bound_by"),
+                    bound(work["bytes"], work["flops"], work["dtype"])))
+
+
+def bounds_phase(kernel_cases, ivf, pq) -> dict:
+    """Bounds at the 1M shapes of PERF.md's kernel table, beside the times
+    the earlier phases took there: K1 over 1,048,576 x 384 float32 at Q = 1
+    and 1,024, K2 / K3 at the IVF phase's Q = 1,024 default dispatch, and K4
+    decoding 1,048,576 rows of M 48 codes into bf16 (with its one-call
+    library equivalent, ``F.embedding`` over the flattened codebook)."""
+    out = {}
+    for row in kernel_cases:
+        case = dict(zip(CASE_COLUMNS, row))
+        if case["case"] == "1M x 384":
+            work = flat_work(case["Q"], case["N"], case["D"], case["k"])
+            out[f"flat_scan Q={case['Q']}"] = dict(work_bound(work), ms=case["ms"],
+                                                   plain_ms=case["plain_ms"])
+    for c in ivf["kernel_cases"]:
+        if c["Q"] == IVF_Q and c["nprobe"] == ivf["resolved_dispatch_q1024"]["nprobe"]:
+            out[f"union_scan v{c['variant']} Q={IVF_Q}"] = dict(
+                work_bound(c), ms=c["ms"], plain_ms=c["plain_ms"])
+    lib = pq["decode_1M_M48_bf16"]
+    out["pq_decode 1M M=48 bf16"] = dict(
+        work_bound({"bytes": lib["bytes"], "flops": 0, "dtype": "bfloat16"}),
+        ms=lib["ms"], plain_ms=lib["plain_ms"], library_ms=lib["library_ms"])
+    return {"phase": "bounds", "hbm_bytes_per_s": HBM_BYTES_PER_S, "peak_flops": PEAK_FLOPS,
+            "kernels": out}
+
+
 def main() -> int:
     import torch
 
@@ -1117,17 +1421,19 @@ def main() -> int:
 
     from rag_faiss_embedding_tpu_torch import _build
     from rag_faiss_embedding_tpu_torch.ops import flat_scan as F
+    from rag_faiss_embedding_tpu_torch.ops import fused_proto as FP
+    from rag_faiss_embedding_tpu_torch.ops import kernel_probe as KP
     from rag_faiss_embedding_tpu_torch.ops import pq_decode as PD
     from rag_faiss_embedding_tpu_torch.ops import union_scan as U
 
     t0 = time.perf_counter()
-    names = ("flat_scan", "union_scan", "pq_decode")
+    names = ("flat_scan", "union_scan", "pq_decode", "fused_proto", "kernel_probe")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:  # one nvcc each
         libs = dict(zip(names, pool.map(_build.build, names)))
-    F.load()  # load the libraries and bind their entry points
-    U.load()
-    PD.load()
-    emit({"phase": "build", "sources": [KERNEL_SOURCE, UNION_SOURCE, PQ_SOURCE],
+    for mod in (F, U, PD, FP, KP):  # load the libraries and bind their entry points
+        mod.load()
+    emit({"phase": "build", "sources": [KERNEL_SOURCE, UNION_SOURCE, PQ_SOURCE, FP_SOURCE,
+                                        KP_SOURCE],
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
           "nvcc_s": dict(_build.build.seconds),
           "build_and_load_s": time.perf_counter() - t0})
@@ -1141,8 +1447,13 @@ def main() -> int:
         trace, sl = slice_phase(torch, F, Path(workdir))
     emit(sl)
     emit(trace)
-    ivf, union_err = ivf_kernel_phase(torch)
+    built = ivf_build(torch)
+    fp = fused_proto_phase(torch, built[0], built[2], built[3])  # on the untouched index
+    emit(fp)
+    ivf, union_err = ivf_kernel_phase(torch, *built)
     emit(ivf)
+    del built
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir:
         ivf_trace, ivf_sl = ivf_slice_phase(torch, Path(workdir))
     emit(ivf_sl)
@@ -1153,37 +1464,62 @@ def main() -> int:
     emit(pq_sl)
     for trace in pq_traces:
         emit(trace)
+    kp = kernel_probe_phase(torch)
+    emit(kp)
+    emit(bounds_phase(cases, ivf, pq))
 
-    loaded =[m for m in ("jax", "flax", "rag_faiss_embedding_tpu.ops") if m in sys.modules]
+    loaded = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES]
     if loaded:
         raise AssertionError(f"the port pulled in JAX modules: {loaded}")
-    main_shape = sl["main_path_kernel_times"]["Q=1"]
-    emit({"kernels": [{
+    flat_q1 = sl["main_path_kernel_times"]["Q=1"]
+    v1 = ivf_sl["main_path_kernel_times"]["Q=1"]
+    v2 = ivf["kernel_cases"][1]
+    pq_q1 = pq_sl["pq"]["main_path_kernel_times"]["Q=1"]
+    chain = kp["variants"]["chain"]
+    kernels = [{
         "name": "flat_scan", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": sl["flat_scan_launches"],
         "max_abs_err": max(max_err, *(v["max_abs_err"]
                                       for v in sl["main_path_kernel_times"].values())),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
+        "ms": flat_q1["ms"], "plain_ms": flat_q1["plain_ms"],
+        **work_bound(flat_work(1, flat_q1["N"], flat_q1["D"], flat_q1["k"])),
+        "library_ms": None,
     }, {
         "name": "union_scan v1", "route": "cuda", "source": UNION_SOURCE,
         "replaces": UNION_REPLACES[1], "launches": ivf_sl["union_scan_v1_launches"],
         "max_abs_err": max(union_err[1], ivf_sl["max_abs_err"]),
-        "ms": ivf_sl["main_path_kernel_times"]["Q=1"]["ms"],
-        "plain_ms": ivf_sl["main_path_kernel_times"]["Q=1"]["plain_ms"],
+        "ms": v1["ms"], "plain_ms": v1["plain_ms"],
+        **work_bound(v1),
+        "library_ms": None,
     }, {
         "name": "union_scan v2", "route": "cuda", "source": UNION_SOURCE,
         "replaces": UNION_REPLACES[2], "launches": ivf["path_launches"][2],
-        "max_abs_err": union_err[2],
-        "ms": ivf["kernel_cases"][1]["ms"],
-        "plain_ms": ivf["kernel_cases"][1]["plain_ms"],
+        "max_abs_err": union_err[2], "ms": v2["ms"], "plain_ms": v2["plain_ms"],
+        **work_bound(v2),
+        "library_ms": None,
     }, {
         "name": "pq_decode", "route": "cuda", "source": PQ_SOURCE,
         "replaces": PQ_REPLACES, "launches": pq_sl["pq_decode_launches"],
         "max_abs_err": max(pq_err, *(pq_sl[k]["max_abs_err"] for k in ("pq", "ivf_pq"))),
-        "ms": pq_sl["pq"]["main_path_kernel_times"]["Q=1"]["ms"],
-        "plain_ms": pq_sl["pq"]["main_path_kernel_times"]["Q=1"]["plain_ms"],
-    }]})
+        "ms": pq_q1["ms"], "plain_ms": pq_q1["plain_ms"],
+        **work_bound({"bytes": pq_q1["bytes"], "flops": 0, "dtype": pq_q1["dtype"]}),
+        "library_ms": pq_q1["library_ms"],
+    }, {
+        "name": "fused_proto", "route": "cuda", "source": FP_SOURCE,
+        "replaces": FP_REPLACES, "launches": fp["path_launches"],
+        "max_abs_err": fp["max_abs_err"], "ms": fp["ms"], "plain_ms": fp["plain_ms"],
+        "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"], "library_ms": None,
+    }, {
+        "name": "kernel_probe", "route": "cuda", "source": KP_SOURCE,
+        "replaces": KP_REPLACES, "launches": sum(kp["path_launches"].values()),
+        "max_abs_err": kp["max_abs_err"], "ms": chain["ms"], "plain_ms": chain["plain_ms"],
+        "bound_ms": kp["bound_ms"], "bound_by": kp["bound_by"], "library_ms": None,
+        "variants": {v: {**t, "launches": kp["path_launches"][v]}
+                     for v, t in kp["variants"].items()},
+    }]
+    if any(e["launches"] <= 0 for e in kernels):
+        raise AssertionError("a kernel was not launched on its path")
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

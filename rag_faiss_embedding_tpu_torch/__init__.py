@@ -8,22 +8,25 @@ module here has its counterpart there:
              (``kmeans``), product quantization (``pq``), int8 row
              quantization (``quantize``), the fused IVF search
              (``ivf_scan``) and the kernel wrappers (``flat_scan``,
-             ``union_scan``, ``pq_decode``; CUDA sources in ``csrc/``)
+             ``union_scan``, ``pq_decode``, ``fused_proto``,
+             ``kernel_probe``; CUDA sources in ``csrc/``)
   index/     FlatIndex, IVFFlatIndex (dense and IVF-PQ), PQIndex,
              VectorStore, the npz codec
   models/    MiniLM ``nn.Module``, Flax-param conversion, tokenizer,
              embedding pipeline, answer generator
   rag/       QueryEngine, RAGManager
+  benchmarks/  the prototype and probe scripts of the fused union scan
+             (``fused_proto``, ``kernel_probe``)
+  core/, store/, utils/, native/
+             copies of the JAX package's host modules (config, logging,
+             the SQLite store, text utilities, the C++ WordPiece tokenizer)
 
-Host modules that import no JAX are shared with the reference package
-(``core.config``, ``core.logging``, ``store.database``, ``utils``, ``native``).
-The reference's top-level ``__init__`` would configure JAX's compile cache on
-import, so the guard below is set before anything from it is imported.
+The package imports nothing of the JAX package: it carries its own copies of
+the host modules it needs.
 """
 
 import os as _os
 
-_os.environ.setdefault("RFE_NO_COMPILE_CACHE", "1")
 _os.environ.setdefault("HF_HUB_OFFLINE", "1")
 _os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
 

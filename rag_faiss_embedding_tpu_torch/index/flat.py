@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from rag_faiss_embedding_tpu.core.logging import get_logger
+from ..core.logging import get_logger
 
 from .. import default_device
 from ..ops import distance as dist_ops

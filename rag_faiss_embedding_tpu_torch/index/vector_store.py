@@ -23,7 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from rag_faiss_embedding_tpu.core.logging import get_logger
+from ..core.logging import get_logger
 
 from .flat import FlatIndex
 from .ivf import IVFFlatIndex

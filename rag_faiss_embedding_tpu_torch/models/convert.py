@@ -20,7 +20,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from rag_faiss_embedding_tpu.core.logging import get_logger
+from ..core.logging import get_logger
 
 from .minilm import MiniLMConfig
 

@@ -23,7 +23,7 @@ from typing import Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from rag_faiss_embedding_tpu.core.logging import get_logger
+from ..core.logging import get_logger
 
 from .. import default_device
 from .convert import (

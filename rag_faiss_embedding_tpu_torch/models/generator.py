@@ -22,8 +22,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-from rag_faiss_embedding_tpu.core.logging import get_logger
-from rag_faiss_embedding_tpu.utils.text import cosine_sim, sentence_split, tf_vector
+from ..core.logging import get_logger
+from ..utils.text import cosine_sim, sentence_split, tf_vector
 
 logger = get_logger(__name__)
 

@@ -2,8 +2,8 @@
 
 A copy of ``rag_faiss_embedding_tpu/models/tokenizer.py`` that imports no
 JAX (importing that module runs ``models/__init__``, which loads the Flax
-encoder). Same vocab files, same ids; the C++ fast path is the JAX
-package's ``native`` module, which is framework-free.
+encoder). Same vocab files, same ids; the C++ fast path is this package's
+copy of the JAX package's ``native`` module.
 
 The reference leans on HF ``AutoTokenizer`` (``vectorization.py:13,29-35``:
 pad-to-longest, truncate at 512). This is a from-scratch BERT-style WordPiece
@@ -37,7 +37,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from rag_faiss_embedding_tpu.core.logging import get_logger
+from ..core.logging import get_logger
 
 logger = get_logger(__name__)
 
@@ -151,14 +151,12 @@ class WordPieceTokenizer:
         if self._native is not None:
             return True
         try:
-            from rag_faiss_embedding_tpu.native import NativeWordPiece
+            from ..native import NativeWordPiece
 
             self._native = NativeWordPiece(self.vocab, lowercase=self.lowercase)
             return True
         except Exception as e:  # pragma: no cover - toolchain-dependent
-            from rag_faiss_embedding_tpu.core.logging import get_logger
-
-            get_logger(__name__).debug("native tokenizer unavailable: %s", e)
+            logger.debug("native tokenizer unavailable: %s", e)
             return False
 
     def encode(self, text: str, max_length: int = 512) -> List[int]:

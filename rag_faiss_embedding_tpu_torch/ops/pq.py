@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from rag_faiss_embedding_tpu.core.logging import get_logger
+from ..core.logging import get_logger
 
 from .distance import NEG_INF, as_tensor, finish_topk, merge_topk, small_topk, sqnorms
 from .pq_decode import decode, decode_reference

@@ -29,8 +29,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-from rag_faiss_embedding_tpu.core.logging import get_logger
-from rag_faiss_embedding_tpu.store.database import Database
+from ..core.logging import get_logger
+from ..store.database import Database
 
 from ..index.vector_store import VectorStore
 from ..models.encoder import EmbeddingPipeline

@@ -25,9 +25,9 @@ from typing import Dict, List, Optional
 
 import torch
 
-from rag_faiss_embedding_tpu.core.config import Config
-from rag_faiss_embedding_tpu.core.logging import get_logger
-from rag_faiss_embedding_tpu.store.database import Database
+from ..core.config import Config
+from ..core.logging import get_logger
+from ..store.database import Database
 
 from .. import default_device
 from ..index.ivf import IVFFlatIndex

@@ -105,7 +105,7 @@ def test_card_index_rejects_k_above_kmax(rng, tmp_path):
     manager let that error through instead of answering with no documents.
     The index here lives on the CPU and only claims the card, which is all
     the check reads."""
-    from rag_faiss_embedding_tpu.core import Config
+    from rag_faiss_embedding_tpu_torch.core import Config
     from rag_faiss_embedding_tpu_torch.models import EmbeddingPipeline, MiniLMConfig
     from rag_faiss_embedding_tpu_torch.ops import flat_scan
     from rag_faiss_embedding_tpu_torch.rag import QueryEngine, RAGManager

@@ -12,12 +12,13 @@ embeddings agree to ~1e-5 per element).
 import numpy as np
 import pytest
 
-from rag_faiss_embedding_tpu.core import Config
+from rag_faiss_embedding_tpu.core import Config as JCfg
 from rag_faiss_embedding_tpu.index import VectorStore as JStore
 from rag_faiss_embedding_tpu.models import MiniLMConfig as JConfig
 from rag_faiss_embedding_tpu.models import convert as jconvert
 from rag_faiss_embedding_tpu.models.tokenizer import WordPieceTokenizer
 from rag_faiss_embedding_tpu.rag import RAGManager as JManager
+from rag_faiss_embedding_tpu_torch.core import Config as TCfg
 from rag_faiss_embedding_tpu_torch.index import IVFFlatIndex, VectorStore as TStore
 from rag_faiss_embedding_tpu_torch.models.generator import AnswerGenerator as TGen
 from rag_faiss_embedding_tpu_torch.rag import QueryEngine as TEngine
@@ -36,12 +37,13 @@ def managers(tmp_path_factory):
     params = jconvert.deterministic_params(JConfig(**WIDTHS), seed=3)
     tok = WordPieceTokenizer.train([d["content"] for d in docs], vocab_size=2048)
     out = {}
-    for name, cls, kw in (("jax", JManager, {}), ("torch", TManager, {"device": "cpu"})):
+    for name, cls, cfg_cls, kw in (("jax", JManager, JCfg, {}),
+                                   ("torch", TManager, TCfg, {"device": "cpu"})):
         data = tmp / name / "data"
         tok.save(data / "vocab.txt")
         jconvert.export_params(params, data / "encoder_params.npz")
-        cfg = Config(base_dir=tmp / name, model_name="offline-test", index_kind="ivf",
-                     ivf_nlist=NLIST)
+        cfg = cfg_cls(base_dir=tmp / name, model_name="offline-test", index_kind="ivf",
+                      ivf_nlist=NLIST)
         m = cls(config=cfg, **kw)
         assert m.initialize_database(docs) == 40
         out[name] = m
@@ -109,8 +111,8 @@ def test_pq_and_ivf_pq_still_raise(tmp_path):
     small = MiniLMConfig(vocab_size=256, hidden_size=16, num_layers=1, num_heads=2,
                          intermediate_size=32, max_position_embeddings=64)
     for kind, extra in (("ivf", {"ivf_pq_m": 8}), ("pq", {})):
-        cfg = Config(base_dir=tmp_path / kind, model_name="offline-test",
-                     index_kind=kind, **extra)
+        cfg = TCfg(base_dir=tmp_path / kind, model_name="offline-test",
+                   index_kind=kind, **extra)
         emb = EmbeddingPipeline(cfg=small, max_seq_length=64, device="cpu",
                                 vocab_path=cfg.data_dir / "vocab.txt")
         m = TManager(config=cfg, embedder=emb, device="cpu")

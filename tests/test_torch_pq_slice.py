@@ -15,12 +15,13 @@ products in float32 in different orders).
 import numpy as np
 import pytest
 
-from rag_faiss_embedding_tpu.core import Config
+from rag_faiss_embedding_tpu.core import Config as JCfg
 from rag_faiss_embedding_tpu.index import VectorStore as JStore
 from rag_faiss_embedding_tpu.models import MiniLMConfig as JConfig
 from rag_faiss_embedding_tpu.models import convert as jconvert
 from rag_faiss_embedding_tpu.models.tokenizer import WordPieceTokenizer
 from rag_faiss_embedding_tpu.rag import RAGManager as JManager
+from rag_faiss_embedding_tpu_torch.core import Config as TCfg
 from rag_faiss_embedding_tpu_torch.index import IVFFlatIndex, PQIndex
 from rag_faiss_embedding_tpu_torch.index import VectorStore as TStore
 from rag_faiss_embedding_tpu_torch.models.generator import AnswerGenerator as TGen
@@ -42,11 +43,12 @@ def managers(tmp_path_factory):
     tok = WordPieceTokenizer.train([d["content"] for d in docs], vocab_size=2048)
     out = {}
     for kind, kw in KINDS.items():
-        for name, cls, extra in (("jax", JManager, {}), ("torch", TManager, {"device": "cpu"})):
+        for name, cls, cfg_cls, extra in (("jax", JManager, JCfg, {}),
+                                          ("torch", TManager, TCfg, {"device": "cpu"})):
             base = tmp / kind / name
             tok.save(base / "data" / "vocab.txt")
             jconvert.export_params(params, base / "data" / "encoder_params.npz")
-            cfg = Config(base_dir=base, model_name="offline-test", **kw)
+            cfg = cfg_cls(base_dir=base, model_name="offline-test", **kw)
             m = cls(config=cfg, **extra)
             assert m.initialize_database(docs) == 40
             out[kind, name] = m

@@ -18,7 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from rag_faiss_embedding_tpu.core import Config
+from rag_faiss_embedding_tpu.core import Config as JCfg
 from rag_faiss_embedding_tpu.index import VectorStore as JStore
 from rag_faiss_embedding_tpu.ingest import HtmlIngestor
 from rag_faiss_embedding_tpu.models import MiniLMConfig as JConfig
@@ -27,6 +27,7 @@ from rag_faiss_embedding_tpu.models.generator import AnswerGenerator as JGen
 from rag_faiss_embedding_tpu.models.tokenizer import WordPieceTokenizer
 from rag_faiss_embedding_tpu.rag import QueryEngine as JEngine
 from rag_faiss_embedding_tpu.rag import RAGManager as JManager
+from rag_faiss_embedding_tpu_torch.core import Config as TCfg
 from rag_faiss_embedding_tpu_torch.index import VectorStore as TStore
 from rag_faiss_embedding_tpu_torch.models.generator import AnswerGenerator as TGen
 from rag_faiss_embedding_tpu_torch.rag import QueryEngine as TEngine
@@ -69,13 +70,13 @@ def managers(tmp_path_factory):
         data = tmp / name / "data"
         tok.save(data / "vocab.txt")
         jconvert.export_params(params, data / "encoder_params.npz")
-        cfg = Config(base_dir=tmp / name, model_name="offline-test")
+        kw = dict(base_dir=tmp / name, model_name="offline-test")
         if name == "jax":
-            m = JManager(config=cfg)
+            m = JManager(config=JCfg(**kw))
             engine = JEngine(m.db, m.vector_store, m.embedder,
                              generator=JGen(backend="extractive"))
         else:
-            m = TManager(config=cfg, device="cpu")
+            m = TManager(config=TCfg(**kw), device="cpu")
             engine = TEngine(m.db, m.vector_store, m.embedder,
                              generator=TGen(backend="extractive"))
         assert m.initialize_database(docs) == 40
@@ -147,7 +148,7 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     # the slice must run where neither package is installed
     sys.modules["transformers"] = None
     sys.modules["tokenizers"] = None
-    from rag_faiss_embedding_tpu.core import Config
+    from rag_faiss_embedding_tpu_torch.core import Config
     from rag_faiss_embedding_tpu_torch.models import EmbeddingPipeline, MiniLMConfig
     from rag_faiss_embedding_tpu_torch.models.generator import AnswerGenerator
     from rag_faiss_embedding_tpu_torch.rag import QueryEngine, RAGManager
@@ -170,7 +171,8 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     print(json.dumps({
         "hits": [h["id"] for h in hits], "batch": [len(r) for r in batch],
         "answer": bool(answer),
-        "loaded": sorted(k for k in ("jax", "flax", "jaxlib") if k in sys.modules),
+        "loaded": sorted(k for k in sys.modules if k.split(".")[0] in
+                         ("jax", "flax", "jaxlib", "rag_faiss_embedding_tpu")),
     }))
 """)
 
