@@ -15,8 +15,11 @@ Phases, one JSON object per line:
 3. kernel: the flat-scan kernel against its plain torch version on the same
    CUDA tensors, over a grid of metrics, dtypes, Q, N, D and k, plus edge
    cases, rows wider than a shared-memory tile, and the 1,048,576 x 384
-   float32 database; both timed with CUDA events (median of 10 after
-   warm-up).
+   float32 database at Q = 1, 16, 64, 256 and 1,024; both timed with CUDA
+   events (median of 10 after warm-up). There, each stage-1 path of the
+   kernel (one query per warp, the tiled block) is forced at each Q of
+   CROSSOVER_Q, held to the plain version and timed: the measurements that
+   place the wrapper's crossover between them.
 4. slice: MiniLM-L6 at full width (seeded random weights) ->
    ``RAGManager.initialize_database`` over 4,096 documents -> 8
    ``QueryEngine.search`` requests, one 16-query ``search_batch``, one
@@ -77,13 +80,15 @@ Phases, one JSON object per line:
 12. bounds: each kernel's bound at the 1M shapes (the least time for its
     bytes at 3.35 TB/s or its operations at the peak of the unit the exact
     result needs), beside the times the earlier phases took there (K4 at 1M
-    rows with ``F.embedding``, from phase 8's grid).
+    rows with ``F.embedding``, from phase 8's grid), each with its achieved
+    TFLOP/s and its share of the bound (bound_ms / ms).
 
 Then a ``{"kernels": [...]}`` line (launch counts from each kernel's path:
 the flat scan's from the slice, union-scan variant 1's from the IVF slice,
 variant 2's from the IVF kernel phase, the PQ decode's from the PQ slice,
 K5's from the prototype search, K6's from the probe's run; each with its
-bound at the path's shape and the one-call library time where one exists)
+bound at the path's shape, its achieved TFLOP/s and share of that bound,
+and the one-call library time where one exists)
 and, last, ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero without the
 last line. It needs no network and loads nothing of JAX or the JAX
@@ -132,6 +137,9 @@ SEED = 0
 # terms round more) relative to the largest terms that cancel in
 # ||q||^2 - (2 q.x - ||x||^2).
 RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# Q of the 1M x 384 float32 flat scans: each stage-1 path of K1 is timed at
+# each, to place the wrapper's crossover between them (ops/flat_scan.py)
+CROSSOVER_Q = (1, 7, 16, 24, 25, 32, 64, 256, 1024)
 CASE_COLUMNS = ["case", "dtype", "metric", "Q", "N", "D", "k", "n_valid",
                 "max_abs_err", "id_mismatch", "ms", "plain_ms"]
 
@@ -249,11 +257,25 @@ def kernel_phase(torch, F):
                 for nq in (1, 37):
                     run("wide rows", randn(nq, d).to(dtype), base.to(dtype), 10, metric)
     big = randn(1 << 20, 384)
-    for nq in (1, 1024):
-        run("1M x 384", randn(nq, 384), big, 10, "L2")
-    del big
+    big_sq = sqnorms(big)
+    paths = {}
+    for nq in CROSSOVER_Q:
+        q = randn(nq, 384)
+        if nq in (1, 16, 64, 256, 1024):  # the default path, checked and timed
+            run("1M x 384", q, big, 10, "L2")
+        # each stage-1 path forced: held to the plain version, then timed
+        paths[nq] = {"chosen": next(k for k, v in F.PATHS.items() if v == F.choose_path(nq))}
+        for name in F.PATHS:
+            kw = dict(db_sq=big_sq, path=name)
+            kv, ki = F.flat_search(q, big, 10, **kw)
+            torch.cuda.synchronize()
+            pv, pi = F.flat_search_reference(q, big, 10, db_sq=big_sq)
+            err, _ = assert_same_topk(torch, q, big, kv, ki, pv, pi, "L2", RTOL["float32"])
+            max_err = max(max_err, err)
+            paths[nq][name] = cuda_ms(torch, lambda: F.flat_search(q, big, 10, **kw))
+    del big, big_sq
     torch.cuda.empty_cache()
-    return cases, max_err
+    return cases, max_err, paths
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1376,6 +1398,14 @@ def work_bound(work: dict) -> dict:
                     bound(work["bytes"], work["flops"], work["dtype"])))
 
 
+def achieved(work: dict, ms: float) -> dict:
+    """``work_bound`` of a kernel call that took ``ms``, with its achieved
+    rate (TFLOP/s of the operations ``work`` counts) and its share of the
+    bound (bound_ms / ms)."""
+    b = work_bound(work)
+    return {**b, "tflops": work["flops"] / ms / 1e9, "bound_share": b["bound_ms"] / ms}
+
+
 def bounds_phase(kernel_cases, ivf, pq) -> dict:
     """Bounds at the 1M shapes of PERF.md's kernel table, beside the times
     the earlier phases took there: K1 over 1,048,576 x 384 float32 at Q = 1
@@ -1387,15 +1417,15 @@ def bounds_phase(kernel_cases, ivf, pq) -> dict:
         case = dict(zip(CASE_COLUMNS, row))
         if case["case"] == "1M x 384":
             work = flat_work(case["Q"], case["N"], case["D"], case["k"])
-            out[f"flat_scan Q={case['Q']}"] = dict(work_bound(work), ms=case["ms"],
+            out[f"flat_scan Q={case['Q']}"] = dict(achieved(work, case["ms"]), ms=case["ms"],
                                                    plain_ms=case["plain_ms"])
     for c in ivf["kernel_cases"]:
         if c["Q"] == IVF_Q and c["nprobe"] == ivf["resolved_dispatch_q1024"]["nprobe"]:
             out[f"union_scan v{c['variant']} Q={IVF_Q}"] = dict(
-                work_bound(c), ms=c["ms"], plain_ms=c["plain_ms"])
+                achieved(c, c["ms"]), ms=c["ms"], plain_ms=c["plain_ms"])
     lib = pq["decode_1M_M48_bf16"]
     out["pq_decode 1M M=48 bf16"] = dict(
-        work_bound({"bytes": lib["bytes"], "flops": 0, "dtype": "bfloat16"}),
+        achieved({"bytes": lib["bytes"], "flops": 0, "dtype": "bfloat16"}, lib["ms"]),
         ms=lib["ms"], plain_ms=lib["plain_ms"], library_ms=lib["library_ms"])
     return {"phase": "bounds", "hbm_bytes_per_s": HBM_BYTES_PER_S, "peak_flops": PEAK_FLOPS,
             "kernels": out}
@@ -1438,10 +1468,10 @@ def main() -> int:
           "nvcc_s": dict(_build.build.seconds),
           "build_and_load_s": time.perf_counter() - t0})
 
-    cases, max_err = kernel_phase(torch, F)
+    cases, max_err, paths = kernel_phase(torch, F)
     emit({"phase": "kernel", "kernel": "flat_scan", "rtol": RTOL,
           "atol": "rtol x (max ||q||^2 + max ||x||^2)", "columns": CASE_COLUMNS,
-          "cases": cases})
+          "cases": cases, "paths_1M_x_384_ms": paths, "tiled_min_q": F.TILED_MIN_Q})
 
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir:
         trace, sl = slice_phase(torch, F, Path(workdir))
@@ -1482,38 +1512,38 @@ def main() -> int:
         "max_abs_err": max(max_err, *(v["max_abs_err"]
                                       for v in sl["main_path_kernel_times"].values())),
         "ms": flat_q1["ms"], "plain_ms": flat_q1["plain_ms"],
-        **work_bound(flat_work(1, flat_q1["N"], flat_q1["D"], flat_q1["k"])),
+        **achieved(flat_work(1, flat_q1["N"], flat_q1["D"], flat_q1["k"]), flat_q1["ms"]),
         "library_ms": None,
     }, {
         "name": "union_scan v1", "route": "cuda", "source": UNION_SOURCE,
         "replaces": UNION_REPLACES[1], "launches": ivf_sl["union_scan_v1_launches"],
         "max_abs_err": max(union_err[1], ivf_sl["max_abs_err"]),
         "ms": v1["ms"], "plain_ms": v1["plain_ms"],
-        **work_bound(v1),
+        **achieved(v1, v1["ms"]),
         "library_ms": None,
     }, {
         "name": "union_scan v2", "route": "cuda", "source": UNION_SOURCE,
         "replaces": UNION_REPLACES[2], "launches": ivf["path_launches"][2],
         "max_abs_err": union_err[2], "ms": v2["ms"], "plain_ms": v2["plain_ms"],
-        **work_bound(v2),
+        **achieved(v2, v2["ms"]),
         "library_ms": None,
     }, {
         "name": "pq_decode", "route": "cuda", "source": PQ_SOURCE,
         "replaces": PQ_REPLACES, "launches": pq_sl["pq_decode_launches"],
         "max_abs_err": max(pq_err, *(pq_sl[k]["max_abs_err"] for k in ("pq", "ivf_pq"))),
         "ms": pq_q1["ms"], "plain_ms": pq_q1["plain_ms"],
-        **work_bound({"bytes": pq_q1["bytes"], "flops": 0, "dtype": pq_q1["dtype"]}),
+        **achieved({"bytes": pq_q1["bytes"], "flops": 0, "dtype": pq_q1["dtype"]}, pq_q1["ms"]),
         "library_ms": pq_q1["library_ms"],
     }, {
         "name": "fused_proto", "route": "cuda", "source": FP_SOURCE,
         "replaces": FP_REPLACES, "launches": fp["path_launches"],
         "max_abs_err": fp["max_abs_err"], "ms": fp["ms"], "plain_ms": fp["plain_ms"],
-        "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"], "library_ms": None,
+        **achieved(fp, fp["ms"]), "library_ms": None,
     }, {
         "name": "kernel_probe", "route": "cuda", "source": KP_SOURCE,
         "replaces": KP_REPLACES, "launches": sum(kp["path_launches"].values()),
         "max_abs_err": kp["max_abs_err"], "ms": chain["ms"], "plain_ms": chain["plain_ms"],
-        "bound_ms": kp["bound_ms"], "bound_by": kp["bound_by"], "library_ms": None,
+        **achieved(kp, chain["ms"]), "library_ms": None,
         "variants": {v: {**t, "launches": kp["path_launches"][v]}
                      for v, t in kp["variants"].items()},
     }]

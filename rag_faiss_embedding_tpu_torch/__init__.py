@@ -42,5 +42,12 @@ __version__ = "0.1.0"
 
 
 def default_device() -> _torch.device:
-    """``cuda`` when a card is present, else ``cpu``."""
-    return _torch.device("cuda" if _torch.cuda.is_available() else "cpu")
+    """``cuda``, the device an entry point uses when it is given none.
+
+    Raises ``RuntimeError`` where no card is visible: a machine that has lost
+    its card must not serve from the CPU unnoticed, so running on the CPU
+    takes an explicit ``device="cpu"``."""
+    if not _torch.cuda.is_available():
+        raise RuntimeError(
+            'no CUDA device is visible; pass device="cpu" to run on the CPU')
+    return _torch.device("cuda")

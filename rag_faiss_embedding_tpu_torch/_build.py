@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, at first use, and loaded with
 ``ctypes``. The library lands in ``_build/<hash>/`` inside the package, keyed
-by a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. Nothing here runs at import time.
+by a hash of the source, the ``csrc/*.cuh`` headers it includes and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -40,13 +42,36 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources_of(src: Path) -> list:
+    """``src`` and every file it includes with ``#include "..."``, found
+    beside the including file, recursively, each once, in include order."""
+    seen, todo = [], [src.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode()
+                 for m in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
+def build_key(src: Path) -> str:
+    """The build directory's name: a hash of the source, the headers it
+    includes and the flags, so an edited header is rebuilt too."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources_of(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` (if not built yet); return the library."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    out = BUILD_DIR / digest / f"lib{name}.so"
+    out = BUILD_DIR / build_key(src) / f"lib{name}.so"
     if out.exists():
         return out
     nvcc = find_nvcc()

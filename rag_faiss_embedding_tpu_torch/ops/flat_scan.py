@@ -8,10 +8,14 @@ products descending, and index -1 with inf / -inf in slots no live row
 fills (also when ``k`` exceeds ``n_valid`` inside a padded buffer).
 
 - On a CUDA tensor it launches ``csrc/flat_scan.cu`` (built on first use by
-  ``_build``) or raises. The tile sizes are the kernel's own, so the TPU
-  version's ``tile_q`` / ``tile_n`` / ``interpret`` arguments are gone. Any
-  width D fits (wide rows are staged in column chunks); k is at most
-  ``KMAX`` (``check_k`` raises ``ValueError`` above it).
+  ``_build``) or raises: stage 1 scans, stage 2 merges and writes the public
+  values, and no other device work follows. The tile sizes are the kernel's
+  own, so the TPU version's ``tile_q`` / ``tile_n`` / ``interpret``
+  arguments are gone. Any width D fits (wide rows are staged in column
+  chunks); k is at most ``KMAX`` (``check_k`` raises ``ValueError`` above
+  it). Stage 1 takes one of two paths by the number of queries
+  (``choose_path``): one query per warp, or the register-tiled block of 128
+  queries x 128 rows.
 - On a CPU tensor it runs ``flat_search_reference``, the same contract in
   plain torch (``ops/distance.exact_search``).
 
@@ -28,16 +32,26 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .distance import NEG_INF, as_tensor, exact_search, finish_topk, sqnorms
+from .distance import as_tensor, exact_search, sqnorms
 
 # stage-1 blocks to aim for, in waves of what the card holds at once: with
-# several waves the last, partly filled one costs little
+# several waves the last, partly filled one costs little. The tiled path
+# takes one wave: each split's first tiles fill its lists, so more splits
+# cost more insertions (``benchmarks/scan_kernels.py --waves`` times it)
 _WAVES = 8
+_TILED_WAVES = 1
 # largest k the kernel's lists hold: csrc/flat_scan.cu's KMAX (load() checks
 # that the two agree)
 KMAX = 64
 # column chunks tried, widest first, when a whole row does not fit a tile
 _CHUNK_COLS = (1024, 512, 256, 128)
+# stage-1 paths (csrc/flat_scan.cu's Path)
+WARP, TILED = 0, 1
+PATHS = {"warp": WARP, "tiled": TILED}
+# fewest queries that take the tiled path: the crossover measured on an
+# H100 over 1M x 384 float32 rows (PERF.md, the kernel table's findings;
+# chip_smoke.py times both paths at each of its CROSSOVER_Q)
+TILED_MIN_Q = 25
 
 
 def check_k(k: int) -> None:
@@ -45,6 +59,14 @@ def check_k(k: int) -> None:
     if k > KMAX:
         raise ValueError(
             f"k={k} exceeds the CUDA flat scan's limit KMAX={KMAX}")
+
+
+def choose_path(nq: int) -> int:
+    """The stage-1 path for ``nq`` queries: one query per warp below
+    ``TILED_MIN_Q`` (each block of 8 queries reads the database once, and the
+    tiled block's 128 query rows would be mostly padding), the tiled block
+    from there."""
+    return TILED if nq >= TILED_MIN_Q else WARP
 
 
 def flat_search_reference(
@@ -66,11 +88,11 @@ def load() -> ctypes.CDLL:
     points."""
     lib = _build.load("flat_scan")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rfe_flat_scan.argtypes = [vp] * 7 + [ci] * 11 + [vp]
+    lib.rfe_flat_scan.argtypes = [vp] * 7 + [ci] * 12 + [vp]
     lib.rfe_flat_scan.restype = ci
     lib.rfe_flat_scan_kmax.argtypes = []
     lib.rfe_flat_scan_kmax.restype = ci
-    lib.rfe_flat_scan_tile_rows.argtypes = []
+    lib.rfe_flat_scan_tile_rows.argtypes = [ci]
     lib.rfe_flat_scan_tile_rows.restype = ci
     lib.rfe_flat_scan_block_queries.argtypes = [ci]
     lib.rfe_flat_scan_block_queries.restype = ci
@@ -93,14 +115,14 @@ def chunk_widths(d: int) -> Tuple[int, ...]:
 
 
 def plan_splits(nq: int, n_rows: int, block_queries: int, tile_rows: int,
-                capacity: int) -> Tuple[int, int]:
+                capacity: int, waves: int = _WAVES) -> Tuple[int, int]:
     """(rows_per_split, n_splits) for stage 1. Q tiles alone give one block
-    at Q = 1, so the database is split too, aiming at ``_WAVES`` times the
+    at Q = 1, so the database is split too, aiming at ``waves`` times the
     ``capacity`` (blocks the card holds at once), with every split a whole
     number of tiles and none empty."""
     q_blocks = -(-nq // block_queries)
     n_tiles = -(-n_rows // tile_rows)
-    want = max(1, -(-_WAVES * capacity // q_blocks))
+    want = max(1, -(-waves * capacity // q_blocks))
     tiles_per_split = -(-n_tiles // want)
     n_splits = -(-n_tiles // tiles_per_split)
     return tiles_per_split * tile_rows, n_splits
@@ -108,55 +130,50 @@ def plan_splits(nq: int, n_rows: int, block_queries: int, tile_rows: int,
 
 @functools.lru_cache(maxsize=None)
 def _launch_shape(device_index: int, d: int, k: int, is_l2: bool,
-                  is_bf16: bool, four_per_warp: bool) -> Tuple[int, int, int]:
-    """(queries per warp, columns per chunk, blocks the card holds at
-    once) for a shape: the widest chunk that fits, four queries per warp
-    where asked and that fits too."""
+                  is_bf16: bool, path: int) -> Tuple[int, int]:
+    """(columns per chunk, blocks the card holds at once) for a shape and
+    path. The tiled path stages 16 columns at a time whatever D is; the
+    one-query-per-warp path takes the widest chunk that fits."""
     lib = load()
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    for dc in chunk_widths(d):
-        for qw in ((4, 1) if four_per_warp else (1,)):
-            per_sm = lib.rfe_flat_scan_blocks_per_sm(d, k, is_l2, is_bf16, qw, dc)
-            if per_sm > 0:
-                return qw, dc, per_sm * sms
+    for dc in ((0,) if path == TILED else chunk_widths(d)):
+        per_sm = lib.rfe_flat_scan_blocks_per_sm(d, k, is_l2, is_bf16, path, dc)
+        if per_sm > 0:
+            return dc, per_sm * sms
     raise RuntimeError(f"no flat-scan launch shape fits dim {d}, k={k}")
 
 
-def _kernel_search(q, db, db_sq, n_rows: int, k: int, metric: str):
+def _kernel_search(q, db, db_sq, n_rows: int, k: int, k_out: int, metric: str,
+                   path: int):
     lib = load()
     nq, d = q.shape
-    index = db.device.index
-    if index is None:
-        index = torch.cuda.current_device()
-    # four queries per warp once a block of one-query warps would be full
-    qw, dc, capacity = _launch_shape(
-        index, d, k, metric == "L2", db.dtype == torch.bfloat16,
-        nq > lib.rfe_flat_scan_block_queries(1))
-    rows_per_split, n_splits = plan_splits(
-        nq, n_rows, lib.rfe_flat_scan_block_queries(qw),
-        lib.rfe_flat_scan_tile_rows(), capacity)
-    is_bf16 = db.dtype == torch.bfloat16
-    width = 8 if is_bf16 else 4
-    vec = int(d % width == 0 and db.data_ptr() % 16 == 0)
     dev = db.device
-    part_v = torch.empty((nq, n_splits, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((nq, n_splits, k), dtype=torch.int32, device=dev)
-    out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    is_l2, is_bf16 = metric == "L2", db.dtype == torch.bfloat16
+    dc, capacity = _launch_shape(index, d, k, is_l2, is_bf16, path)
+    rows_per_split, n_splits = plan_splits(
+        nq, n_rows, lib.rfe_flat_scan_block_queries(path),
+        lib.rfe_flat_scan_tile_rows(path), capacity,
+        _TILED_WAVES if path == TILED else _WAVES)
+    vec = int(d % (8 if is_bf16 else 4) == 0 and db.data_ptr() % 16 == 0
+              and q.data_ptr() % 16 == 0)
+    # two allocations (scratch; values and ids): on the single-request path
+    # the host's work, not the card's, sets the time
+    part = torch.empty(2 * nq * n_splits * k, dtype=torch.int32, device=dev)
+    out = torch.empty((2, nq, k_out), dtype=torch.int32, device=dev)
+    p, o = part.data_ptr(), out.data_ptr()
     err = lib.rfe_flat_scan(
-        q.data_ptr(), db.data_ptr(), db_sq.data_ptr(),
-        part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(),
-        nq, n_rows, d, k, int(metric == "L2"), int(is_bf16), qw, dc,
-        rows_per_split, n_splits, vec,
-        torch.cuda.current_stream(dev).cuda_stream,
+        q.data_ptr(), db.data_ptr(), db_sq.data_ptr() if is_l2 else None,
+        p, p + 4 * nq * n_splits * k, o, o + 4 * nq * k_out,
+        nq, n_rows, d, k, k_out, int(is_l2), int(is_bf16), path, dc,
+        rows_per_split, n_splits, vec, torch._C._cuda_getCurrentRawStream(index),
     )
     if err != 0:
         raise RuntimeError(
             "flat_scan kernel launch failed: "
             + lib.rfe_cuda_error_string(err).decode())
     flat_search.launches += 1
-    return out_v, out_i
+    return out[0].view(torch.float32), out[1]
 
 
 def flat_search(
@@ -167,12 +184,15 @@ def flat_search(
     metric: str = "L2",
     db_sq=None,
     n_valid: Optional[int] = None,
+    path: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact fused top-k scan; same contract as ``ops.distance.exact_search``.
 
     ``q`` (Q, D) and ``db`` (N, D) share a dtype (float32 or bfloat16);
-    ``db_sq`` is the float32 row squared norms (computed if omitted);
-    rows >= ``n_valid`` are padding.
+    ``db_sq`` is the float32 row squared norms (computed if omitted, for
+    L2); rows >= ``n_valid`` are padding. ``path`` ("warp" or "tiled")
+    forces a stage-1 path on the card, to measure the paths against each
+    other; by default ``choose_path`` picks it.
     """
     if metric not in ("L2", "IP"):
         raise ValueError(f"metric must be 'L2' or 'IP', got {metric!r}")
@@ -191,20 +211,18 @@ def flat_search(
     if q.shape[1] != d:
         raise ValueError(f"query dim {q.shape[1]} != database dim {d}")
     q, db = q.contiguous(), db.contiguous()
-    if db_sq is None:
-        db_sq = sqnorms(db)
-    db_sq = as_tensor(db_sq, db.device, torch.float32).contiguous()
+    if metric == "L2":
+        db_sq = sqnorms(db) if db_sq is None else db_sq
+        db_sq = as_tensor(db_sq, db.device, torch.float32).contiguous()
     n_rows = n if n_valid is None else max(0, min(int(n_valid), n))
     k_eff = min(k, n)
 
-    if nq == 0 or n_rows == 0 or k_eff == 0:
-        best_v = torch.full((nq, k_eff), NEG_INF, device=db.device)
-        best_i = torch.full((nq, k_eff), -1, dtype=torch.int32,
-                            device=db.device)
-    else:
-        best_v, best_i = _kernel_search(q, db, db_sq, n_rows, k_eff, metric)
-    # the kernel leaves NEG_INF / -1 in slots no live row filled
-    return finish_topk(best_v, best_i, q, k, metric)
+    if nq == 0 or n_rows == 0 or k_eff == 0:  # no row to return
+        fill = float("inf") if metric == "L2" else float("-inf")
+        return (torch.full((nq, k), fill, device=db.device),
+                torch.full((nq, k), -1, dtype=torch.int32, device=db.device))
+    return _kernel_search(q, db, db_sq, n_rows, k_eff, k, metric,
+                          choose_path(nq) if path is None else PATHS[path])
 
 
 flat_search.launches = 0

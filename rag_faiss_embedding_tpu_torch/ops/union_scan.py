@@ -21,7 +21,10 @@ in-kernel final top-``ktop``) become one CUDA source, ``csrc/union_scan.cu``.
 Variant 1 masks dead rows (id < 0) to ``NEG_INF``; variant 2 folds them into
 the norm operand (``DEAD_SQ``) and takes queries pre-doubled for L2 (exact).
 
-- On CUDA tensors it launches the kernel or raises.
+- On CUDA tensors it launches the kernel or raises. Stage 1 runs on bf16
+  tensor cores for bf16 storage (``mma.sync``, float32 accumulation: the
+  products are exact, only the sum order differs), on FP32 FMA for float32
+  storage.
 - On CPU tensors it runs ``union_scan_reference``, the same contract in
   plain torch.
 
@@ -87,6 +90,7 @@ def packing_bits(u: int) -> int:
     return max(1, int(math.ceil(math.log2(max(u, 2)))))
 
 
+@functools.lru_cache(maxsize=None)
 def init_packed(nbits: int) -> int:
     """The empty-bin value: NEG_INF packed with union position 0."""
     return mono_i32_host(NEG_INF) & ~((1 << nbits) - 1)
@@ -216,15 +220,15 @@ def load() -> ctypes.CDLL:
     points."""
     lib = _build.load("union_scan")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rfe_union_scan.argtypes = [vp] * 8 + [ci] * 15 + [vp]
+    lib.rfe_union_scan.argtypes = [vp] * 8 + [ci] * 16 + [vp]
     lib.rfe_union_scan.restype = ci
-    lib.rfe_union_scan_blocks_per_sm.argtypes = [ci] * 4
+    lib.rfe_union_scan_blocks_per_sm.argtypes = [ci] * 5
     lib.rfe_union_scan_blocks_per_sm.restype = ci
     lib.rfe_union_scan_max_cap.argtypes = []
     lib.rfe_union_scan_max_cap.restype = ci
     lib.rfe_union_scan_tile_rows.argtypes = []
     lib.rfe_union_scan_tile_rows.restype = ci
-    lib.rfe_union_scan_block_queries.argtypes = []
+    lib.rfe_union_scan_block_queries.argtypes = [ci]
     lib.rfe_union_scan_block_queries.restype = ci
     lib.rfe_union_scan_error_string.argtypes = [ci]
     lib.rfe_union_scan_error_string.restype = ctypes.c_char_p
@@ -236,18 +240,29 @@ def load() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _capacity(device_index: int, d: int, is_bf16: bool, cap: int,
-              mode: int) -> int:
-    """Stage-1 blocks the card holds at once for this shape (mode 0 / 1 /
-    2 / 3: variant 1 L2 / 1 IP / 2 L2 / 2 IP)."""
+def _stage1(device_index: int, d: int, is_bf16: bool, cap: int,
+            mode: int) -> Tuple[bool, int, int, int]:
+    """(tensor cores, queries per block, slots per block, blocks the card
+    holds at once) of the stage-1 kernel for a shape (mode 0 / 1 / 2 / 3:
+    variant 1 L2 / 1 IP / 2 L2 / 2 IP). bf16 storage runs on tensor cores
+    wherever that kernel's shared memory fits (D <= 440), the FMA kernel
+    elsewhere."""
     lib = load()
-    per_sm = lib.rfe_union_scan_blocks_per_sm(d, int(is_bf16), cap, mode)
-    if per_sm <= 0:
-        raise RuntimeError(
-            f"no union-scan launch fits dim {d} (cap {cap}): "
-            + lib.rfe_union_scan_error_string(-per_sm).decode())
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return per_sm * sms
+    for tc in ((True, False) if is_bf16 and d % 16 == 0 else (False,)):
+        per_sm = lib.rfe_union_scan_blocks_per_sm(d, int(is_bf16), cap, mode, int(tc))
+        if per_sm > 0:
+            return (tc, lib.rfe_union_scan_block_queries(int(tc)),
+                    lib.rfe_union_scan_tile_rows(), per_sm * sms)
+    raise RuntimeError(
+        f"no union-scan launch fits dim {d} (cap {cap}): "
+        + lib.rfe_union_scan_error_string(-per_sm).decode())
+
+
+def query_tiles(qc: int, block_queries: int) -> Tuple[Tuple[int, int], ...]:
+    """The stage-1 query tiles of a chunk of ``qc`` queries (grid z):
+    (first query, queries) of each, every query in exactly one."""
+    return tuple((q0, min(block_queries, qc - q0)) for q0 in range(0, qc, block_queries))
 
 
 def plan_splits(base_blocks: int, u: int, capacity: int) -> Tuple[int, int]:
@@ -268,11 +283,10 @@ def _kernel_scan(qv, u_all, codes3, rsq, ids, window, cap, metric, variant,
     dev = qv.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     is_bf16 = qv.dtype == torch.bfloat16
-    tn, tq = lib.rfe_union_scan_tile_rows(), lib.rfe_union_scan_block_queries()
-    base = chunks * -(-qc // tq) * -(-window // tn)
     mode = 2 * (variant - 1) + int(metric != "L2")
-    per_split, n_splits = plan_splits(
-        base, u, _capacity(index, d, is_bf16, cap, mode))
+    tc, tq, tn, capacity = _stage1(index, d, is_bf16, cap, mode)
+    base = chunks * len(query_tiles(qc, tq)) * -(-window // tn)
+    per_split, n_splits = plan_splits(base, u, capacity)
     part = torch.empty((chunks, qc, n_splits, cap, window), dtype=torch.int32, device=dev)
     if ktop:
         out = torch.empty((chunks, qc, KPAD), dtype=torch.int32, device=dev)
@@ -285,7 +299,7 @@ def _kernel_scan(qv, u_all, codes3, rsq, ids, window, cap, metric, variant,
         ids.data_ptr(), part.data_ptr(), out.data_ptr(), lane.data_ptr(),
         chunks, qc, d, u, window, cap, int(metric == "L2"), variant,
         int(is_bf16), nbits, init_packed(nbits), ktop, per_split, n_splits,
-        KPAD, torch.cuda.current_stream(dev).cuda_stream,
+        KPAD, int(tc), torch._C._cuda_getCurrentRawStream(index),
     )
     if err != 0:
         raise RuntimeError("union_scan kernel launch failed: "

@@ -137,13 +137,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _check_kernel_vs_plain(q, db, k, metric, n_valid=None):
+def _check_kernel_vs_plain(q, db, k, metric, n_valid=None, path=None):
     launches = F.flat_search.launches
-    kv, ki = F.flat_search(q, db, k, metric=metric, n_valid=n_valid)
+    kv, ki = F.flat_search(q, db, k, metric=metric, n_valid=n_valid, path=path)
     torch.cuda.synchronize()
     assert F.flat_search.launches == launches + 1
     pv, pi = F.flat_search_reference(q, db, k, metric=metric, n_valid=n_valid)
     kv, ki, pv, pi = (t.cpu().numpy() for t in (kv, ki, pv, pi))
+    assert kv.shape == pv.shape and ki.shape == pi.shape
     rtol = RTOL if db.dtype == torch.float32 else 1e-3
     np.testing.assert_allclose(kv, pv, rtol=rtol, atol=ATOL)
     # ids may differ only at near-ties, where the values agree
@@ -162,6 +163,24 @@ def test_kernel_matches_plain_on_card(rng, cuda, dtype, metric, nq, n, d, k):
     q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
     db = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
     _check_kernel_vs_plain(q.to(cuda, dtype), db.to(cuda, dtype), k, metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["warp", "tiled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["L2", "IP"])
+@pytest.mark.parametrize("nq,n,d,k", [
+    (1, 3001, 16, 1), (7, 3001, 100, 10), (65, 5000, 384, 64), (1000, 2900, 384, 10),
+    (65, 3001, 1030, 10), (7, 3001, 2048, 10),
+])
+def test_every_path_matches_plain_on_card(rng, cuda, path, dtype, metric, nq, n, d, k):
+    """Each stage-1 path, forced, at Q off the query tiles (1, 7, 65, 1,000)
+    and N off the row tiles, k 1 / 10 / 64, D from 16 to 2,048 (100 and
+    1,030 take the scalar staging, 1,030 and 2,048 the column chunks of the
+    whole-row path)."""
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
+    db = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    _check_kernel_vs_plain(q.to(cuda, dtype), db.to(cuda, dtype), k, metric, path=path)
 
 
 @pytest.mark.cuda
@@ -190,6 +209,50 @@ def test_kernel_edges_on_card(rng, cuda, metric):
         F.flat_search(q.to(cuda), db.to(cuda, torch.bfloat16), 4, metric=metric)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["warp", "tiled"])
+@pytest.mark.parametrize("metric", ["L2", "IP"])
+def test_every_path_edges_on_card(rng, cuda, path, metric):
+    """n_valid < N, k > n_valid, k > N (the output padded to k), and 5,000
+    identical rows (ties to ids 0..9), on each path."""
+    db = torch.from_numpy(rng.standard_normal((4000, 384)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((70, 384)).astype(np.float32)).to(cuda)
+    ki = _check_kernel_vs_plain(q, db, 10, metric, n_valid=2500, path=path)
+    assert (ki < 2500).all()
+    ki = _check_kernel_vs_plain(q, db, 10, metric, n_valid=3, path=path)
+    assert (ki[:, 3:] == -1).all() and (ki[:, :3] >= 0).all()
+    kv, ki = F.flat_search(q, db[:5], 9, metric=metric, path=path)
+    fill = np.inf if metric == "L2" else -np.inf
+    assert ki.shape == (70, 9) and (ki[:, 5:] == -1).all().item()
+    assert (kv[:, 5:].cpu().numpy() == fill).all()
+    row = db[:1]
+    for nq in (1, 70):
+        ki = _check_kernel_vs_plain(row.repeat(nq, 1), row.repeat(5000, 1), 10, metric,
+                                    path=path)
+        assert (ki == np.arange(10)).all()
+
+
+@pytest.mark.cuda
+def test_no_device_work_after_the_two_launches(rng, cuda):
+    """On a CUDA tensor a search is the two kernels and nothing else: the
+    epilogue (distances, -1 / inf fill) is in stage 2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    db = torch.from_numpy(rng.standard_normal((5000, 384)).astype(np.float32)).to(cuda)
+    db_sq = (db * db).sum(1)
+    for nq in (1, 100):
+        q = torch.from_numpy(rng.standard_normal((nq, 384)).astype(np.float32)).to(cuda)
+        F.flat_search(q, db, 10, db_sq=db_sq)  # built and warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            F.flat_search(q, db, 10, db_sq=db_sq, n_valid=4000)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(names) == 2, names
+        assert any("scan" in n for n in names) and any("merge_partials" in n for n in names)
+
+
 def test_check_k_rejects_above_kmax():
     F.check_k(F.KMAX)
     with pytest.raises(ValueError, match="KMAX"):
@@ -207,6 +270,35 @@ def test_chunk_widths(d):
     assert all(w % 8 == 0 and w < d4 for w in widths[1:])
 
 
+@pytest.mark.parametrize("nq", [1, 7, 8, 9, 16, 24, 25, 32, 63, 64, 65, 256, 1024])
+def test_choose_path_by_q(nq):
+    """One query per warp below TILED_MIN_Q, the tiled block from there;
+    the single request (Q = 1) never pays for a tile of 128 queries."""
+    assert F.choose_path(nq) == (F.TILED if nq >= F.TILED_MIN_Q else F.WARP)
+    assert 1 < F.TILED_MIN_Q <= 1024
+    assert F.choose_path(1) == F.WARP and F.choose_path(1024) == F.TILED
+
+
+@pytest.mark.parametrize("nq,n_rows,capacity", [
+    (64, 1 << 20, 264), (1024, 1 << 20, 264), (1024, 1 << 20, 132), (1000, 2900, 264),
+    (65, 12345, 264), (4096, 1 << 20, 264), (128, 100, 264),
+])
+def test_tiled_plan_covers_rows_in_whole_tiles(nq, n_rows, capacity):
+    """The tiled path's split plan (128-query x 128-row tiles, one wave):
+    every row in exactly one split of whole tiles, no split empty, and the
+    wave target met wherever there are tiles enough."""
+    rows, splits = F.plan_splits(nq, n_rows, 128, 128, capacity, F._TILED_WAVES)
+    assert rows % 128 == 0 and rows > 0
+    assert (splits - 1) * rows < n_rows <= splits * rows
+    q_blocks = -(-nq // 128)
+    want = max(1, -(-F._TILED_WAVES * capacity // q_blocks))
+    n_tiles = -(-n_rows // 128)
+    if n_tiles <= want:
+        assert splits == n_tiles
+    else:
+        assert want // 2 <= splits <= want
+
+
 @pytest.mark.parametrize("nq,n_rows,capacity", [
     (1, 4096, 264), (1, 1 << 20, 264), (16, 1 << 20, 264), (1024, 1 << 20, 132),
     (7, 100, 264), (300, 65536, 132),
@@ -214,7 +306,7 @@ def test_chunk_widths(d):
 def test_plan_splits_covers_rows_in_whole_tiles(nq, n_rows, capacity):
     """The stage-1 split plan: whole tiles, every row covered, no empty
     split, and the wave target met wherever there are tiles enough."""
-    block_q = 32 if nq > 8 else 8
+    block_q = 8
     rows, splits = F.plan_splits(nq, n_rows, block_q, 64, capacity)
     assert rows % 64 == 0
     assert (splits - 1) * rows < n_rows <= splits * rows

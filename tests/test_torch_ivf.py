@@ -312,7 +312,7 @@ def test_not_ported_yet_raise_naming_the_slice():
     pq = TIVF(D, pq_m=16, rerank=True, device="cpu")
     assert pq.dtype == torch.uint8 and pq.rerank and pq.refine_dtype == "int8"
     with pytest.raises(NotImplementedError, match="build_chunked"):
-        TIVF(D).build_chunked(None, 10)
+        TIVF(D, device="cpu").build_chunked(None, 10)
     with pytest.raises(NotImplementedError, match="the int8 tier"):
         tscan.fused_ivf_search(torch.zeros(1, D), torch.zeros(2, D), torch.zeros(2),
                                torch.zeros(3 * 128, D), torch.ones(3 * 128),

@@ -158,8 +158,8 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
                          num_heads=2, intermediate_size=32,
                          max_position_embeddings=64)
     emb = EmbeddingPipeline(cfg=small, max_seq_length=64,
-                            vocab_path=cfg.data_dir / "vocab.txt")
-    m = RAGManager(cfg, embedder=emb)
+                            vocab_path=cfg.data_dir / "vocab.txt", device="cpu")
+    m = RAGManager(cfg, embedder=emb, device="cpu")
     docs = [{"url": f"u{i}", "title": f"t{i}",
              "content": f"document {i} about subject {i * 3 % 7}"}
             for i in range(12)]

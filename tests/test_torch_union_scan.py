@@ -207,6 +207,20 @@ def test_plan_splits_covers_union(base, u, capacity):
     assert n <= u
 
 
+@pytest.mark.parametrize("qc,block_queries", [
+    (1, 128), (16, 128), (127, 128), (128, 128), (129, 128), (1000, 128), (40, 16), (16, 16),
+])
+def test_query_tiles_cover_each_chunk_once(qc, block_queries):
+    """Stage 1's query tiles of a chunk (grid z): consecutive, whole tiles
+    but the last, every query in exactly one, none empty."""
+    tiles = U.query_tiles(qc, block_queries)
+    assert len(tiles) == -(-qc // block_queries)
+    covered = [q for q0, n in tiles for q in range(q0, q0 + n)]
+    assert covered == list(range(qc))
+    assert all(0 < n <= block_queries for _, n in tiles)
+    assert all(n == block_queries for _, n in tiles[:-1])
+
+
 # ----------------------------------------------------------------- on card
 @pytest.fixture
 def cuda():
@@ -221,15 +235,19 @@ def cuda():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("chunks,qc,u,window,d,cap", [
     (1, 16, 10, 256, 384, 2), (3, 40, 130, 128, 128, 2), (2, 128, 20, 256, 384, 3),
-    (1, 16, 1, 128, 256, 1),
+    (1, 16, 1, 128, 256, 1), (2, 130, 12, 256, 384, 4), (1, 200, 5, 128, 512, 2),
+    (3, 128, 33, 256, 384, 2),
 ])
 def test_kernel_matches_plain_on_card(rng, cuda, variant, ktop, metric, dtype,
                                       chunks, qc, u, window, d, cap):
     """Kernel vs plain on the same card tensors. The two sum the same float32
-    products in different orders, so packed values may differ in their low
-    bits: decoded values agree to rtol 1e-4 / atol 1e-3 (D = 384 sums of
-    products of unit normals reach ~60), and ids may differ only where the
-    values tie."""
+    products in different orders (bf16 storage: tensor cores against the
+    plain float32 product), so packed values may differ in their low bits:
+    decoded values agree to rtol 1e-4 / atol 1e-3 (D = 384 sums of products
+    of unit normals reach ~60), and ids may differ only where the values
+    tie. Chunks of 130 and 200 queries span two tensor-core query tiles;
+    bf16 at D = 512 takes the FMA kernel (the tensor-core block's shared
+    memory holds D <= 440)."""
     nlist = max(u + 2, 8)
     inp = _inputs(rng, chunks=chunks, qc=qc, u=u, nlist=nlist, window=window, d=d,
                   dtype=dtype)
