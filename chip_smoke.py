@@ -14,7 +14,8 @@ Phases, one JSON object per line:
    ``csrc/kernel_probe.cu`` for sm_90a, all at once.
 3. kernel: the flat-scan kernel against its plain torch version on the same
    CUDA tensors, over a grid of metrics, dtypes, Q, N, D and k, plus edge
-   cases, rows wider than a shared-memory tile, and the 1,048,576 x 384
+   cases, k above KMAX (to 5,000, whose lists live in global memory), 30%
+   of the rows dead, rows wider than a shared-memory tile, and the 1,048,576 x 384
    float32 database at Q = 1, 16, 64, 256 and 1,024; both timed with CUDA
    events (median of 10 after warm-up). There, each stage-1 path of the
    kernel (one query per warp, the tiled block) is forced at each Q of
@@ -26,6 +27,9 @@ Phases, one JSON object per line:
    answer -> save, reload in a second manager, search again. Checked
    against the same pipeline and plain scan on the CPU, and the kernel
    against its plain version at the path's own shapes (Q = 1 and Q = 16).
+   Then one request for 100 hits, above the tiled path's KMAX: the kernel
+   serves it (one launch) and it is held to the CPU index. The kernel phase
+   holds K1 to its plain version at k up to 5,000 and with dead rows too.
 5. trace: the same engine, warm: request latency on the host clock, its
    stages (tokenize, embed, scan, SQLite), a ``torch.profiler`` trace of 8
    requests (device busy time per request, by kernel, and the device's idle
@@ -68,15 +72,20 @@ Phases, one JSON object per line:
 10. fused_proto: the IVF prototype (``benchmarks.fused_proto.search``, UCAP =
     QC = 256, BB 16, KP 10, k 10) over phase 6's index at Q = 1,024, through
     K5 and through its plain version: recall@10 of both against the exact
-    top-10 (the IVF gate), identical results; K5 against
-    ``block_topk_reference`` bit for bit at the path's shapes, kp 1 and 32,
-    a cell with 3 live rows and a row twice in one cell; CUDA-event times
-    of K5, its plain version, both searches and ``IVFFlatIndex.search``.
+    top-10 (the IVF gate), distances within the tolerance and ids that
+    differ only at near-ties (``proto_search_check``); K5 against
+    ``block_topk_reference`` (``block_topk_check``: the tensor cores sum in
+    another order, so scores to rtol, ids carrying their own float64
+    scores) at the path's shapes, kp 1 and 32, a cell with 3 live rows and
+    a row twice in one cell (both exact); CUDA-event times of K5, its plain
+    version, both searches and ``IVFFlatIndex.search``.
 11. kernel_probe: ``benchmarks.kernel_probe.run`` at the script's shape
     (synthetic blocks, nlist 8,192, window 256, D 384, QC 256, U 260, BB 10,
     CAP 2, 4 chunks): each variant timed, then held to ``probe_reference``
-    bit for bit, ``chain`` to ``temps``, and a crafted negative-subnormal
-    score that ``temps_f32`` keeps as a NaN.
+    (``probe_check``: values to rtol plus two packing quanta, each carrying
+    its own block's float64 score; NaN bins exact), ``chain`` to ``temps``
+    bit for bit, and a crafted negative-subnormal score that ``temps_f32``
+    keeps as a NaN.
 12. bounds: each kernel's bound at the 1M shapes (the least time for its
     bytes at 3.35 TB/s or its operations at the peak of the unit the exact
     result needs), beside the times the earlier phases took there (K4 at 1M
@@ -137,6 +146,10 @@ SEED = 0
 # terms round more) relative to the largest terms that cancel in
 # ||q||^2 - (2 q.x - ||x||^2).
 RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# K5 and K6 multiply bf16 by bf16, products exact in float32: only the
+# float32 summation order separates the tensor cores from the plain version,
+# so they are held to float32's rtol
+RTOL_EXACT_PRODUCTS = RTOL["float32"]
 # Q of the 1M x 384 float32 flat scans: each stage-1 path of K1 is timed at
 # each, to place the wrapper's crossover between them (ops/flat_scan.py)
 CROSSOVER_Q = (1, 7, 16, 24, 25, 32, 64, 256, 1024)
@@ -194,15 +207,17 @@ def assert_same_topk(torch, q, db, kv, ki, pv, pi, metric, rtol, n_valid=None):
     return err, int((ki != pi).sum())
 
 
-def check_scan(torch, F, q, db, db_sq, k, metric, n_valid=None):
+def check_scan(torch, F, q, db, db_sq, k, metric, n_valid=None, dead=None):
     """Kernel vs plain on the same CUDA tensors; returns (max_abs_err,
-    id mismatches, kernel ids)."""
-    kw = dict(metric=metric, db_sq=db_sq, n_valid=n_valid)
+    id mismatches, kernel ids). No row marked ``dead`` may come back."""
+    kw = dict(metric=metric, db_sq=db_sq, n_valid=n_valid, dead=dead)
     kv, ki = F.flat_search(q, db, k, **kw)
     torch.cuda.synchronize()
     pv, pi = F.flat_search_reference(q, db, k, **kw)
     rtol = RTOL["bfloat16" if db.dtype == torch.bfloat16 else "float32"]
     err, mism = assert_same_topk(torch, q, db, kv, ki, pv, pi, metric, rtol, n_valid)
+    if dead is not None and bool(dead[ki.clamp_min(0).long()][ki >= 0].any()):
+        raise AssertionError("a dead row came back")
     return err, mism, ki
 
 
@@ -213,13 +228,13 @@ def kernel_phase(torch, F):
     randn = lambda *s: torch.randn(*s, generator=g, device="cuda")
     cases, max_err = [], 0.0
 
-    def run(name, q, db, k, metric, n_valid=None):
+    def run(name, q, db, k, metric, n_valid=None, dead=None):
         nonlocal max_err
         # row norms come precomputed, as the index keeps them
         db_sq = sqnorms(db)
-        err, mism, ki = check_scan(torch, F, q, db, db_sq, k, metric, n_valid)
+        err, mism, ki = check_scan(torch, F, q, db, db_sq, k, metric, n_valid, dead)
         max_err = max(max_err, err)
-        kw = dict(metric=metric, db_sq=db_sq, n_valid=n_valid)
+        kw = dict(metric=metric, db_sq=db_sq, n_valid=n_valid, dead=dead)
         row = [name, str(db.dtype).removeprefix("torch."), metric, q.shape[0],
                db.shape[0], db.shape[1], k, n_valid, err, mism,
                cuda_ms(torch, lambda: F.flat_search(q, db, k, **kw)),
@@ -248,6 +263,14 @@ def kernel_phase(torch, F):
         if ki[0].tolist() != list(range(10)):
             raise AssertionError(f"ties must go to the lowest ids, got {ki[0].tolist()}")
         run("ragged Q,N", randn(37, 100), randn(12345, 100), 10, metric)
+        # k above KMAX (the warp path's long lists; 5,000 in global memory),
+        # and tombstones / filters as the kernel's dead rows
+        dead = torch.rand(65536, generator=g, device="cuda") < 0.3
+        for nq, k in ((1, 100), (7, 100), (256, 100), (1, 1000), (7, 1000)):
+            run("k>KMAX", randn(nq, 384), db, k, metric)
+        run("k>KMAX", randn(7, 384), db[:8192], 5000, metric)  # lists in global memory
+        for nq, k in ((1, 10), (7, 100), (256, 10)):
+            run("dead rows", randn(nq, 384), db, k, metric, dead=dead)
     # rows wider than a shared-memory tile go in column chunks; 1030 takes
     # the scalar staging path, 2048 the 16-byte one
     for d in (1030, 2048):
@@ -490,6 +513,20 @@ def slice_phase(torch, F, workdir: Path):
             "ms": cuda_ms(torch, lambda: F.flat_search(*args, **kw)),
             "plain_ms": cuda_ms(torch, lambda: F.flat_search_reference(*args, **kw)),
         }
+    # a request for 100 hits (above the tiled path's KMAX): K1 serves it,
+    # held to the CPU index
+    before = F.flat_search.launches
+    hits = run.engine.search(queries[0], top_k=100)
+    k100_launches = F.flat_search.launches - before
+    if len(hits) != 100 or k100_launches != 1:
+        raise AssertionError(f"top_k=100 gave {len(hits)} hits through {k100_launches} "
+                             f"kernel launches")
+    q1 = manager.embedder.embed_query(queries[0])[None]
+    kv, ki = index.search(q1, 100)
+    cv, ci = cpu_index.search(q1, 100)
+    k100_err, k100_mism = assert_same_topk(
+        torch, torch.from_numpy(q1), torch.from_numpy(cpu_index.vectors()),
+        kv.cpu(), ki.cpu(), cv, ci, "L2", RTOL["float32"])
     trace = trace_phase(torch, run.engine, queries, batch_queries)
     manager.cleanup()
     run.reloaded.cleanup()
@@ -498,6 +535,8 @@ def slice_phase(torch, F, workdir: Path):
         "encoder": dataclasses.asdict(manager.embedder.cfg),
         "flat_scan_launches": launches, "embedding_max_abs_err_vs_cpu": emb_err,
         "main_path_kernel_times": shapes,
+        "top_k_100": {"kernel_launches": k100_launches, "hits": len(hits),
+                      "max_abs_err_vs_cpu": k100_err, "id_mismatch_vs_cpu": k100_mism},
     }
 
 
@@ -1227,26 +1266,74 @@ def bound(bytes_moved: float, flops: float, dtype: str):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def same_bits(torch, a, b) -> bool:
-    """Equal shapes and equal bits (NaN payloads included)."""
-    if a.shape != b.shape or a.dtype != b.dtype:
-        return False
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
-    return torch.equal(a, b)
+def block_topk_check(torch, FP, args, kp: int):
+    """K5 against its plain version on the same card tensors; returns
+    (max |score| difference over live slots, ids that differ). The tensor
+    cores sum the exact bf16 products in another order than the plain
+    version, so: the same slots filled (NEG_INF / -1 past a cell's live
+    rows), scores within rtol x (max ||q||^2 + max ||x||^2) + rtol x |score|,
+    lists sorted with an id once each, and every kernel id carrying its own
+    float64 score (so ids differ only at near-ties)."""
+    from rag_faiss_embedding_tpu_torch.ops.distance import NEG_INF
 
-
-def block_topk_check(torch, FP, args, kp: int) -> float:
-    """K5 against its plain version on the same card tensors, bit for bit
-    (the plain version sums the same exact bf16 products in the kernel's
-    order); returns the max |score| difference over live slots (0)."""
     kv, ki = FP.block_topk(**args, kp=kp)
     torch.cuda.synchronize()
     pv, pi = FP.block_topk_reference(**args, kp=kp)
-    if not (same_bits(torch, kv, pv) and torch.equal(ki, pi)):
-        raise AssertionError(f"block_topk differs from its plain version (kp {kp})")
-    live = pv > -3.4e38
-    return float((kv - pv).abs()[live].max()) if live.any() else 0.0
+    q, ids2 = args["qs"].double(), args["ids2"]
+    rtol = RTOL_EXACT_PRODUCTS
+    atol = rtol * float((q * q).sum(-1).max() + args["sq2"][ids2 >= 0].max())
+    ok = ki >= 0
+    if not (torch.equal(ok, pi >= 0) and bool((kv[~ok] == NEG_INF).all())):
+        raise AssertionError(f"block_topk fills other slots than its plain version (kp {kp})")
+    diff = (kv - pv).abs()[ok]
+    err = float(diff.max()) if ok.any() else 0.0
+    if not bool((diff <= atol + rtol * pv.abs()[ok]).all()):
+        raise AssertionError(f"block_topk scores differ by {err} (kp {kp})")
+    srt = torch.where(ok, ki, -1 - torch.arange(kp, device=ki.device, dtype=ki.dtype))
+    srt = srt.sort(-1).values
+    if not (bool((srt[..., 1:] != srt[..., :-1]).all())
+            and bool((kv[..., 1:] <= kv[..., :-1]).all())):
+        raise AssertionError(f"block_topk lists repeat an id or are unsorted (kp {kp})")
+    flat = ids2.reshape(-1)
+    live = torch.nonzero(flat >= 0).flatten()
+    slot_of = torch.full((int(flat.max()) + 1,), -1, dtype=torch.long, device=flat.device)
+    slot_of[flat[live].long()] = live  # a spill row's copies are the same row
+    rows = args["codes3"].reshape(flat.shape[0], -1)
+    sq = args["sq2"].reshape(-1)
+    for c in range(kv.shape[0]):
+        slot = slot_of[ki[c].clamp_min(0).long()]
+        own = 2.0 * (q[c][None, :, None, :] * rows[slot].double()).sum(-1) - sq[slot].double()
+        bad = ((own - kv[c].double()).abs() > atol + rtol * own.abs()) & ok[c]
+        if bool(bad.any()):
+            raise AssertionError(f"block_topk ids do not carry their scores (kp {kp})")
+    return err, int((ki != pi).sum())
+
+
+def proto_search_check(torch, idx, queries, kernel, plain):
+    """The prototype search through K5 against it through the plain version:
+    the same slots filled, distances within rtol x (max ||q||^2 + max ||x||^2)
+    + rtol x |distance|, and every id of the kernel route carrying its own
+    float64 distance to its stored bf16 row (||q||^2 - 2 bf16(q).x + ||x||^2,
+    the prototype's own arithmetic), so ids differ only at near-ties.
+    Returns (max distance difference, ids that differ)."""
+    (kv, ki), (pv, pi) = kernel, plain
+    if not (torch.equal(ki >= 0, pi >= 0) and bool((ki >= 0).all())):
+        raise AssertionError("the prototype search left slots empty")
+    rtol = RTOL_EXACT_PRODUCTS
+    q = queries.double()
+    live_sq = idx._sorted_sq[idx._sorted_ids >= 0]
+    atol = rtol * float((q * q).sum(1).max() + live_sq.max())
+    err = float((kv - pv).abs().max())
+    if not bool(((kv - pv).abs() <= atol + rtol * pv.abs()).all()):
+        raise AssertionError(f"prototype search distances differ by {err}")
+    slots = slot_of_ids(torch, idx)[ki.long()]
+    x = idx._sorted_vecs[slots].double()
+    qb = queries.bfloat16().double()
+    own = ((q * q).sum(1)[:, None] - 2.0 * (qb[:, None, :] * x).sum(-1)
+           + idx._sorted_sq[slots].double()).clamp_min(0)
+    if not bool(((own - kv.double()).abs() <= atol + rtol * own.abs()).all()):
+        raise AssertionError("prototype search ids do not carry their distances")
+    return err, int((ki != pi).sum())
 
 
 def fused_proto_phase(torch, idx, queries, truth):
@@ -1272,17 +1359,17 @@ def fused_proto_phase(torch, idx, queries, truth):
     if not (ids.shape == (IVF_Q, 10) and bool((ids >= 0).all())
             and bool(torch.isfinite(vals).all()) and bool((vals[:, 1:] >= vals[:, :-1]).all())):
         raise AssertionError("the prototype search returned missing or unsorted slots")
-    if not (torch.equal(ids, pids) and same_bits(torch, vals, pvals)):
-        raise AssertionError("the prototype search differs between K5 and its plain version")
+    search_err, search_mism = proto_search_check(torch, idx, queries, (vals, ids),
+                                                 (pvals, pids))
 
     # K5 against its plain version: the path's shapes, kp 1 and the largest,
     # a cell with fewer than kp live rows, the same row twice in one cell
     _, _, args = BF.cell_args(queries, idx)
     cases, max_err = [], 0.0
     for kp in (BF.KP, 1, FP.KP_MAX):
-        err = block_topk_check(torch, FP, args, kp)
+        err, mism = block_topk_check(torch, FP, args, kp)
         max_err = max(max_err, err)
-        cases.append({"case": "path", "kp": kp, "max_abs_err": err})
+        cases.append({"case": "path", "kp": kp, "max_abs_err": err, "id_mismatch": mism})
     cell = args["u_all"][0, :BF.BB].long()
     sparse = dict(args, ids2=args["ids2"].clone())
     sparse["ids2"][cell] = -1
@@ -1290,8 +1377,10 @@ def fused_proto_phase(torch, idx, queries, truth):
     kv, ki = FP.block_topk(**sparse, kp=BF.KP)
     if not bool(((ki[0, 0] >= 0).sum(-1) == 3).all()):
         raise AssertionError("a cell with 3 live rows must return 3 ids per query")
-    max_err = max(max_err, block_topk_check(torch, FP, sparse, BF.KP))
-    cases.append({"case": "3 live rows in a cell", "kp": BF.KP})
+    err, mism = block_topk_check(torch, FP, sparse, BF.KP)
+    max_err = max(max_err, err)
+    cases.append({"case": "3 live rows in a cell", "kp": BF.KP, "max_abs_err": err,
+                  "id_mismatch": mism})
     a = next(int(x) for x in cell if bool((args["ids2"][x] >= 0).any()))
     b = next(int(x) for x in cell if int(x) != a)
     live = int(torch.nonzero(args["ids2"][a] >= 0)[0])
@@ -1305,8 +1394,10 @@ def fused_proto_phase(torch, idx, queries, truth):
     twice = int(dup["ids2"][a, live])
     if int(ki[0, 0, 0, 0]) != twice or bool(((ki == twice).sum(-1) > 1).any()):
         raise AssertionError("a row twice in one cell must come back once")
-    max_err = max(max_err, block_topk_check(torch, FP, dup, BF.KP))
-    cases.append({"case": "same row twice in a cell", "kp": BF.KP})
+    err, mism = block_topk_check(torch, FP, dup, BF.KP)
+    max_err = max(max_err, err)
+    cases.append({"case": "same row twice in a cell", "kp": BF.KP, "max_abs_err": err,
+                  "id_mismatch": mism})
     del sparse, dup
     torch.cuda.empty_cache()
 
@@ -1318,7 +1409,12 @@ def fused_proto_phase(torch, idx, queries, truth):
         "phase": "fused_proto", "N": IVF_N, "D": IVF_DIM, "nlist": idx.nlist,
         "window": idx._window, "Q": IVF_Q, "ucap": BF.UCAP, "qc": BF.QC, "bb": BF.BB,
         "kp": BF.KP, "k": BF.K, "recall@10": routes, "path_launches": launches,
-        "kernel_cases": cases, "max_abs_err": max_err, **work, **work_bound(work),
+        "tensor_cores": FP.uses_tensor_cores(torch.cuda.current_device(), IVF_DIM),
+        "search_max_abs_err": search_err, "search_id_mismatch": search_mism,
+        "kernel_cases": cases, "max_abs_err": max_err, "rtol": RTOL_EXACT_PRODUCTS,
+        "atol": RTOL_EXACT_PRODUCTS * float(
+            (args["qs"].double() ** 2).sum(-1).max() + args["sq2"][args["ids2"] >= 0].max()),
+        **work, **work_bound(work),
         "ms": cuda_ms(torch, lambda: FP.block_topk(**args, kp=BF.KP)),
         "plain_ms": cuda_ms(torch, lambda: FP.block_topk_reference(**args, kp=BF.KP), 3, 1),
         "search_ms": cuda_ms(torch, lambda: BF.search(queries, idx)),
@@ -1328,14 +1424,66 @@ def fused_proto_phase(torch, idx, queries, truth):
     }
 
 
+def probe_check(torch, KP, variant: str, inputs: dict, kw: dict):
+    """One K6 variant against its plain version on the same card tensors;
+    returns (kernel bins, max |value| difference, bins that differ). The
+    tensor cores sum the exact bf16 products in another order than the plain
+    version, so: bins that read as a float NaN (a negative-subnormal score
+    under temps_f32) are the same bins with the same bits; empty bins agree;
+    values within rtol x (max ||q||^2 + max ||x||^2) + (rtol + two packing
+    quanta) x |value|; and every kernel value carries its own block's
+    float64 score for its (query, slot), so block positions differ only at
+    near-ties. ``none`` holds block U - 1 in every bin."""
+    from rag_faiss_embedding_tpu_torch.ops.distance import NEG_INF
+    from rag_faiss_embedding_tpu_torch.ops.union_scan import packing_bits, unmonotone_f32
+
+    k = KP.probe(variant, **inputs, **kw)
+    torch.cuda.synchronize()
+    p = KP.probe_reference(variant, **inputs, **kw)
+    u_all, qs, codes3, aux3 = (inputs[n] for n in ("u_all", "qs", "codes3", "aux3"))
+    u, window = u_all.shape[1], codes3.shape[1]
+    nbits = packing_bits(u)
+    mask = (1 << nbits) - 1
+    kn, pn = torch.isnan(k.view(torch.float32)), torch.isnan(p.view(torch.float32))
+    if not (torch.equal(kn, pn) and torch.equal(k[kn], p[pn])):
+        raise AssertionError(f"probe {variant}: the NaN bins differ from the plain version's")
+    kv, kb = unmonotone_f32(k & ~mask), k & mask
+    pv = unmonotone_f32(p & ~mask)
+    live = ~kn & (kv > 0.5 * NEG_INF)
+    if not torch.equal(live, ~pn & (pv > 0.5 * NEG_INF)):
+        raise AssertionError(f"probe {variant}: other bins empty than in the plain version")
+    rtol = RTOL_EXACT_PRODUCTS
+    q = qs.double()
+    blocks = codes3[torch.unique(u_all).long()].float()
+    atol = rtol * float((q * q).sum(-1).max() + (blocks * blocks).sum(-1).max())
+    rel = rtol + 2.0 ** (nbits - 22)
+    diff = (kv - pv).abs()[live]
+    err = float(diff.max()) if live.any() else 0.0
+    if not bool((diff <= atol + rel * pv.abs()[live]).all()):
+        raise AssertionError(f"probe {variant}: values differ by {err}")
+    rsq = aux3[:, 0].contiguous().view(torch.float32).double()
+    slot = torch.arange(k.shape[-1], device=k.device) % window
+    for c in range(u_all.shape[0]):
+        x = codes3[u_all[c].long()].double()                         # (U, window, D)
+        s = 2.0 * torch.einsum("qd,usd->qus", q[c], x) - rsq[u_all[c].long()][None]
+        s = torch.where(aux3[u_all[c].long(), 1][None] >= 0, s, NEG_INF)
+        own = s[torch.arange(q.shape[1], device=k.device)[:, None], kb[c].long(), slot[None]]
+        bad = ((kv[c].double() - own).abs() > atol + rel * own.abs()) & live[c]
+        if bool(bad.any()):
+            raise AssertionError(f"probe {variant}: values do not carry their blocks' scores")
+    if variant == "none" and not bool((kb == u - 1).all()):
+        raise AssertionError("probe none must hold the last block's tile")
+    return k, err, int((k != p).sum())
+
+
 def kernel_probe_phase(torch):
     """``benchmarks.kernel_probe.run`` at the script's shape (every variant
     timed on the same synthetic blocks), then each variant against its
-    plain version bit for bit, ``chain`` against ``temps``, and a crafted
-    negative-subnormal score that ``temps_f32`` meets as a NaN."""
+    plain version (``probe_check``), ``chain`` against ``temps`` bit for
+    bit, and a crafted negative-subnormal score that ``temps_f32`` meets as
+    a NaN."""
     from rag_faiss_embedding_tpu_torch.benchmarks import kernel_probe as BK
     from rag_faiss_embedding_tpu_torch.ops import kernel_probe as KP
-    from rag_faiss_embedding_tpu_torch.ops.union_scan import packing_bits
 
     inputs = BK.make_inputs(device=torch.device("cuda"), seed=SEED)
     KP.probe.launches = 0  # count the path's launches only
@@ -1347,19 +1495,14 @@ def kernel_probe_phase(torch):
         raise AssertionError(f"a probe variant was never launched: {launches}")
 
     kw = dict(bb=BK.BB, cap=BK.CAP)
-    outs, plain_ms = {}, {}
+    outs, plain_ms, max_err, mismatch = {}, {}, 0.0, {}
     for variant in KP.VARIANTS:
-        outs[variant] = KP.probe(variant, **inputs, **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(outs[variant], KP.probe_reference(variant, **inputs, **kw)):
-            raise AssertionError(f"probe {variant} differs from its plain version")
+        outs[variant], err, mismatch[variant] = probe_check(torch, KP, variant, inputs, kw)
+        max_err = max(max_err, err)
         plain_ms[variant] = cuda_ms(
             torch, lambda: KP.probe_reference(variant, **inputs, **kw), 3, 1)
     if not torch.equal(outs["chain"], outs["temps"]):
         raise AssertionError("probe chain and temps differ")
-    mask = (1 << packing_bits(BK.U)) - 1
-    if not bool(((outs["none"] & mask) == BK.U - 1).all()):
-        raise AssertionError("probe none must hold the last block's tile")
 
     # a zero query row against a norm of 1e-39: the score -1e-39 is a
     # negative subnormal, its packed int a NaN as a float
@@ -1369,23 +1512,28 @@ def kernel_probe_phase(torch):
     crafted["aux3"][blk, 0, 7] = torch.tensor(1e-39, dtype=torch.float32,
                                               device="cuda").view(torch.int32)
     for variant in KP.VARIANTS:
-        if not torch.equal(KP.probe(variant, **crafted, **kw),
-                           KP.probe_reference(variant, **crafted, **kw)):
-            raise AssertionError(f"probe {variant} differs from its plain version "
-                                 "on the subnormal case")
-    nan_bins = KP.probe("temps_f32", **crafted, **kw)[0, 0, [7, 7 + BK.WINDOW]]
-    if not bool(torch.isnan(nan_bins.view(torch.float32)).all()):
-        raise AssertionError("temps_f32 lost the subnormal score's NaN")
+        out, err, _ = probe_check(torch, KP, variant, crafted, kw)
+        max_err = max(max_err, err)
+        if variant == "temps_f32":
+            nan_bins = out[0, 0, [7, 7 + BK.WINDOW]]
+            if not bool(torch.isnan(nan_bins.view(torch.float32)).all()):
+                raise AssertionError("temps_f32 lost the subnormal score's NaN")
     del crafted
 
     work = scan_work(torch, inputs["qs"], inputs["u_all"], inputs["aux3"][:, 1],
                      BK.CHUNKS * BK.QC, outs["chain"].numel() * 4)
     init_share = float((outs["temps_f32"] == outs["chain"]).float().mean())
+    blocks = inputs["codes3"][torch.unique(inputs["u_all"]).long()].double()
+    atol = RTOL_EXACT_PRODUCTS * float((inputs["qs"].double() ** 2).sum(-1).max()
+                                       + (blocks * blocks).sum(-1).max())
+    del blocks
     return {
         "phase": "kernel_probe", "nlist": BK.NLIST, "window": BK.WINDOW, "D": BK.DIM,
         "qc": BK.QC, "U": BK.U, "bb": BK.BB, "cap": BK.CAP, "chunks": BK.CHUNKS,
         "reps": BK.REPS, "path_launches": launches, **work, **work_bound(work),
-        "max_abs_err": 0.0,
+        "tensor_cores": KP.uses_tensor_cores(torch.cuda.current_device(), BK.DIM, BK.CAP),
+        "max_abs_err": max_err, "rtol": RTOL_EXACT_PRODUCTS, "atol": atol,
+        "bins_differing_from_plain": mismatch,
         "temps_f32_bins_equal_to_chain": init_share,
         "variants": {r["variant"]: {"ms": r["ms_per_batch"], "plain_ms": plain_ms[r["variant"]]}
                      for r in rows},

@@ -42,6 +42,16 @@
 // (merge_partials): one block per query merges the S * k candidates and
 // writes the public (Q, k_out) values and ids, padding k_out > k with -1.
 //
+// Any k: the tiled path holds k <= KMAX; the warp path serves any k. Above
+// KMAX a list's insert moves its tail 32 slots at a time instead of through
+// registers, the wrapper gives each split at least 8 k rows (so a split's
+// list fills from a share of its rows), and where a block's lists do not fit
+// in shared memory beside the tile they live in global memory: stage 1's in
+// its partial lists, stage 2's in the output row (one merging warp).
+//
+// Tombstones: an optional (n_rows,) byte mask; a nonzero row is never
+// offered, so it never comes back (the plain scan's `dead`).
+//
 // Entry points take raw device pointers and a stream, launch on that stream,
 // allocate nothing, and return cudaGetLastError() as an int.
 
@@ -56,7 +66,7 @@
 #include "async_copy.cuh"
 #include "launch.cuh"
 
-#define KMAX 64     // largest k the lists hold: two slots per lane
+#define KMAX 64     // largest k of the tiled path and of a register-shifted list
 #define TN 64       // database rows per tile of scan_partial: two per lane
 #define NWARPS 8
 #define THREADS (NWARPS * 32)
@@ -88,6 +98,22 @@ __device__ void warp_insert(float* lv, int* li, int k, float v, int i, int lane)
   for (int off = 16; off > 0; off >>= 1)
     before += __shfl_xor_sync(FULL_MASK, before, off);
   const int p = before;  // the candidate's position
+  if (k > KMAX) {
+    // a long list: slots p .. k - 1 take the slot below them (p the
+    // candidate), 32 at a time from the top; a group is read whole before
+    // it is written, and the group below it is written only after that
+    for (int s0 = (k - 1) & ~31; s0 >= (p & ~31); s0 -= 32) {
+      const int s = s0 + lane;
+      const bool mine = s >= p && s < k;
+      float sv = v;
+      int si = i;
+      if (mine && s > p) { sv = lv[s - 1]; si = li[s - 1]; }
+      __syncwarp();
+      if (mine) { lv[s] = sv; li[s] = si; }
+    }
+    __syncwarp();
+    return;
+  }
   float nv[KMAX / 32];
   int ni[KMAX / 32];
 #pragma unroll
@@ -154,14 +180,19 @@ __host__ __device__ inline int tile_stride(int d) { return round_up(round_up(d, 
 // norms and lists; dc is the columns staged at once (round_up(d, 4) when
 // the whole row fits). Lists are sized by k, not KMAX: at D = 384 and k <=
 // 60 two blocks then fit on an SM, so one block's tile loads overlap the
-// other's compute. scan_tiled: its slab rings, thresholds, candidate
-// buffers and lists.
-static size_t smem_bytes(int path, int dc, int k) {
+// other's compute; glist = 1 keeps the lists in global memory instead.
+// scan_tiled: its slab rings, thresholds, candidate buffers and lists.
+static size_t smem_bytes(int path, int dc, int k, int glist) {
   if (path == TILED)
     return sizeof(float) * (2 * STAGES * TK * SLAB_LD + 3 * TT + 2 * TT * CAND) +
            (sizeof(float) + sizeof(int)) * (size_t)TT * k;
   return sizeof(float) * ((size_t)TN * tile_stride(dc) + (size_t)NWARPS * dc + TN) +
-         (sizeof(float) + sizeof(int)) * (size_t)NWARPS * k;
+         (glist ? 0 : (sizeof(float) + sizeof(int)) * (size_t)NWARPS * k);
+}
+
+// Stage 2's lists: one of k per warp.
+static size_t merge_smem_bytes(int k) {
+  return (sizeof(float) + sizeof(int)) * (size_t)NWARPS * k;
 }
 
 // Stage columns [c0, c0 + cw) of queries q0 .. q0 + NWARPS - 1 into qs (row
@@ -178,38 +209,43 @@ __device__ __forceinline__ void stage_queries(const T* __restrict__ q, float* qs
 
 // One query per warp (warp w of block b: query 8 b + w), against 64 rows
 // of a whole-row tile at a time, two rows per lane. Shared memory, not
-// registers, bounds the blocks per SM.
-template <typename T, bool L2>
+// registers, bounds the blocks per SM. GLIST: each warp's list is its
+// partial list in global memory (part_v / part_i), for a k whose lists do
+// not fit in shared memory beside the tile (a template argument, so the
+// shared-memory lists compile to shared-memory accesses).
+template <typename T, bool L2, bool GLIST>
 __global__ void __launch_bounds__(THREADS, 1)
 scan_partial(const T* __restrict__ q, const T* __restrict__ db,
-             const float* __restrict__ db_sq, float* __restrict__ part_v,
-             int* __restrict__ part_i, int nq, int n_rows, int d, int k,
-             int dc, int rows_per_split, int vec) {
+             const float* __restrict__ db_sq, const unsigned char* __restrict__ dead,
+             float* __restrict__ part_v, int* __restrict__ part_i, int nq, int n_rows,
+             int d, int k, int dc, int rows_per_split, int vec) {
   constexpr int V = VecWidth<T>::value;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int d4 = round_up(d, 4);
   const int dp = tile_stride(dc);
   const bool one_chunk = dc >= d4;
-  float* tile = smem;                    // TN x dp
-  float* qs = tile + TN * dp;            // NWARPS x dc
-  float* sq = qs + NWARPS * dc;          // TN
-  float* lv = sq + TN + (threadIdx.x >> 5) * k;  // this warp's list: k
-  int* li = reinterpret_cast<int*>(sq + TN + NWARPS * k) + (threadIdx.x >> 5) * k;
-
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * NWARPS;
   const int split = blockIdx.y;
   const int row_lo = split * rows_per_split;
   const int row_hi = min(n_rows, row_lo + rows_per_split);
   const bool live = q0 + warp < nq;  // warp-uniform
+  const size_t lbase = ((size_t)(q0 + warp) * gridDim.y + split) * k;  // its partial list
+
+  float* tile = smem;                    // TN x dp
+  float* qs = tile + TN * dp;            // NWARPS x dc
+  float* sq = qs + NWARPS * dc;          // TN
+  float* lv = GLIST ? part_v + lbase : sq + TN + warp * k;  // this warp's list: k
+  int* li = GLIST ? part_i + lbase : reinterpret_cast<int*>(sq + TN + NWARPS * k) + warp * k;
 
   // with one chunk, the queries are staged once for every tile
   if (one_chunk) stage_queries<T>(q, qs, q0, nq, d, dc, 0, d4);
-  for (int s = lane; s < k; s += 32) {
-    lv[s] = -INFINITY;
-    li[s] = -1;
-  }
+  if (live)
+    for (int s = lane; s < k; s += 32) {
+      lv[s] = -INFINITY;
+      li[s] = -1;
+    }
   __syncthreads();
 
   bool first = true;
@@ -281,15 +317,15 @@ scan_partial(const T* __restrict__ q, const T* __restrict__ db,
       acc0 = 2.f * acc0 - sq[lane];
       acc1 = 2.f * acc1 - sq[lane + 32];
     }
-    warp_offer(lv, li, k, acc0, lane < rows ? t0 + lane : -1, lane);
-    warp_offer(lv, li, k, acc1, lane + 32 < rows ? t0 + lane + 32 : -1, lane);
+    const int r0 = t0 + lane, r1 = r0 + 32;
+    warp_offer(lv, li, k, acc0, lane < rows && !(dead && dead[r0]) ? r0 : -1, lane);
+    warp_offer(lv, li, k, acc1, lane + 32 < rows && !(dead && dead[r1]) ? r1 : -1, lane);
   }
 
-  if (!live) return;
-  const size_t base = ((size_t)(q0 + warp) * gridDim.y + split) * k;
+  if (!live || GLIST) return;  // a global list is already in place
   for (int s = lane; s < k; s += 32) {
-    part_v[base + s] = lv[s];
-    part_i[base + s] = li[s];
+    part_v[lbase + s] = lv[s];
+    part_i[lbase + s] = li[s];
   }
 }
 
@@ -357,9 +393,9 @@ static_assert(THREADS == 2 * TT && TK == 16, "slab_load: two threads of 8 column
 template <typename T, bool L2>
 __global__ void __launch_bounds__(THREADS, TILED_BLOCKS_PER_SM)
 scan_tiled(const T* __restrict__ q, const T* __restrict__ db,
-           const float* __restrict__ db_sq, float* __restrict__ part_v,
-           int* __restrict__ part_i, int nq, int n_rows, int d, int k,
-           int rows_per_split, int vec) {
+           const float* __restrict__ db_sq, const unsigned char* __restrict__ dead,
+           float* __restrict__ part_v, int* __restrict__ part_i, int nq, int n_rows,
+           int d, int k, int rows_per_split, int vec) {
   constexpr bool ASYNC = std::is_same<T, float>::value;
   constexpr int SLAB = TK * SLAB_LD;
   constexpr int NBUF = ASYNC ? STAGES : 2;
@@ -477,7 +513,7 @@ scan_tiled(const T* __restrict__ q, const T* __restrict__ db,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int r = t0 + RSLOT(j);
-      const bool live = r < row_hi;
+      const bool live = r < row_hi && !(dead && dead[r]);
       const float xsq = L2 && live ? db_sq[r] : 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -546,17 +582,22 @@ scan_tiled(const T* __restrict__ q, const T* __restrict__ db,
 // the public values: L2 max(||q||^2 - score, 0) with ||q||^2 summed here in
 // f32, IP the score; -1 with inf (-inf for IP) in slots no live row fills
 // and in slots k .. k_out - 1 (k_out > k when the database has fewer rows
-// than the caller asked for).
-template <typename T, bool L2>
+// than the caller asked for). The warps' lists are in shared memory
+// (merge_smem_bytes); GLIST, for a k whose lists do not fit there, has
+// warp 0 alone merge into the query's output row, whose scores then become
+// the public values in place.
+template <typename T, bool L2, bool GLIST>
 __global__ void __launch_bounds__(THREADS)
 merge_partials(const float* __restrict__ part_v, const int* __restrict__ part_i,
                const T* __restrict__ q, float* __restrict__ out_v, int* __restrict__ out_i,
                int n_cand, int k, int k_out, int d) {
-  __shared__ float lvs[NWARPS * KMAX];
-  __shared__ int lis[NWARPS * KMAX];
+  extern __shared__ float4 msmem4[];
   __shared__ float qsq_w[NWARPS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t qi = blockIdx.x;
+  const int nw = GLIST ? 1 : NWARPS;  // merging warps
+  float* lvs = reinterpret_cast<float*>(msmem4);  // NWARPS x k, unless GLIST
+  int* lis = reinterpret_cast<int*>(lvs + NWARPS * k);
   float qsq = 0.f;
   if (L2) {
     for (int c = threadIdx.x; c < d; c += THREADS) {
@@ -566,26 +607,29 @@ merge_partials(const float* __restrict__ part_v, const int* __restrict__ part_i,
     for (int off = 16; off > 0; off >>= 1) qsq += __shfl_xor_sync(FULL_MASK, qsq, off);
     if (lane == 0) qsq_w[warp] = qsq;
   }
-  float* lv = lvs + warp * k;
-  int* li = lis + warp * k;
-  for (int s = lane; s < k; s += 32) { lv[s] = -INFINITY; li[s] = -1; }
-  __syncwarp();
-  const float* cv = part_v + qi * n_cand;
-  const int* ci = part_i + qi * n_cand;
-  int c = warp * 32 + lane;
-  float v = c < n_cand ? cv[c] : -INFINITY;
-  int i = c < n_cand ? ci[c] : -1;
-  for (int c0 = warp * 32; c0 < n_cand; c0 += THREADS) {
-    c = c0 + THREADS + lane;
-    const float v_next = c < n_cand ? cv[c] : -INFINITY;
-    const int i_next = c < n_cand ? ci[c] : -1;
-    warp_offer(lv, li, k, v, i, lane);
-    v = v_next;
-    i = i_next;
+  float* lv = GLIST ? out_v + qi * k_out : lvs + warp * k;
+  int* li = GLIST ? out_i + qi * k_out : lis + warp * k;
+  if (warp < nw) {
+    for (int s = lane; s < k; s += 32) { lv[s] = -INFINITY; li[s] = -1; }
+    __syncwarp();
+    const float* cv = part_v + qi * n_cand;
+    const int* ci = part_i + qi * n_cand;
+    const int stride = nw * 32;
+    int c = warp * 32 + lane;
+    float v = c < n_cand ? cv[c] : -INFINITY;
+    int i = c < n_cand ? ci[c] : -1;
+    for (int c0 = warp * 32; c0 < n_cand; c0 += stride) {
+      c = c0 + stride + lane;
+      const float v_next = c < n_cand ? cv[c] : -INFINITY;
+      const int i_next = c < n_cand ? ci[c] : -1;
+      warp_offer(lv, li, k, v, i, lane);
+      v = v_next;
+      i = i_next;
+    }
   }
   __syncthreads();
   if (warp != 0) return;
-  for (int w = 1; w < NWARPS; ++w)
+  for (int w = 1; w < nw; ++w)
     for (int s0 = 0; s0 < k; s0 += 32) {
       const int s = s0 + lane;
       warp_offer(lv, li, k, s < k ? lvs[w * k + s] : -INFINITY,
@@ -606,25 +650,32 @@ merge_partials(const float* __restrict__ part_v, const int* __restrict__ part_i,
 
 // The stage-1 kernel for one (dtype, metric, path), as a generic pointer.
 template <typename T, bool L2>
-static const void* scan_for(int path) {
-  return path == TILED ? (const void*)scan_tiled<T, L2> : (const void*)scan_partial<T, L2>;
+static const void* scan_for(int path, int glist) {
+  if (path == TILED) return (const void*)scan_tiled<T, L2>;
+  return glist ? (const void*)scan_partial<T, L2, true> : (const void*)scan_partial<T, L2, false>;
 }
-static const void* scan_kernel(int is_bf16, int is_l2, int path) {
+static const void* scan_kernel(int is_bf16, int is_l2, int path, int glist) {
   typedef __nv_bfloat16 bf16;
-  if (is_bf16) return is_l2 ? scan_for<bf16, true>(path) : scan_for<bf16, false>(path);
-  return is_l2 ? scan_for<float, true>(path) : scan_for<float, false>(path);
+  if (is_bf16) return is_l2 ? scan_for<bf16, true>(path, glist) : scan_for<bf16, false>(path, glist);
+  return is_l2 ? scan_for<float, true>(path, glist) : scan_for<float, false>(path, glist);
 }
-static const void* merge_kernel(int is_bf16, int is_l2) {
+template <typename T, bool L2>
+static const void* merge_for(int glist) {
+  return glist ? (const void*)merge_partials<T, L2, true> : (const void*)merge_partials<T, L2, false>;
+}
+static const void* merge_kernel(int is_bf16, int is_l2, int glist) {
   typedef __nv_bfloat16 bf16;
-  if (is_bf16) return is_l2 ? (const void*)merge_partials<bf16, true> : (const void*)merge_partials<bf16, false>;
-  return is_l2 ? (const void*)merge_partials<float, true> : (const void*)merge_partials<float, false>;
+  if (is_bf16) return is_l2 ? merge_for<bf16, true>(glist) : merge_for<bf16, false>(glist);
+  return is_l2 ? merge_for<float, true>(glist) : merge_for<float, false>(glist);
 }
 
 // dc (scan_partial only) is the whole padded row, or a multiple of 8 below
-// it (so chunk starts keep 16-byte row reads aligned for both dtypes).
-static bool bad_shape(int d, int k, int path, int dc) {
-  if (d < 1 || k < 1 || k > KMAX || path < WARP || path > TILED) return true;
-  if (path == TILED) return false;
+// it (so chunk starts keep 16-byte row reads aligned for both dtypes). The
+// tiled path holds k <= KMAX in shared memory; the warp path takes any k,
+// with its lists in global memory where glist = 1.
+static bool bad_shape(int d, int k, int path, int dc, int glist) {
+  if (d < 1 || k < 1 || path < WARP || path > TILED) return true;
+  if (path == TILED) return k > KMAX || glist;
   const int d4 = round_up(d, 4);
   return dc < 4 || dc % 4 != 0 || dc > d4 || (dc < d4 && dc % 8 != 0);
 }
@@ -638,10 +689,11 @@ int rfe_flat_scan_tile_rows(int path) { return path == TILED ? TT : TN; }
 int rfe_flat_scan_block_queries(int path) { return path == TILED ? TT : NWARPS; }
 
 // Stage-1 blocks one SM holds at once for this shape, or -(CUDA error).
-int rfe_flat_scan_blocks_per_sm(int d, int k, int is_l2, int is_bf16, int path, int dc) {
-  if (bad_shape(d, k, path, dc)) return -(int)cudaErrorInvalidValue;
-  const void* fn = scan_kernel(is_bf16, is_l2, path);
-  const size_t smem = smem_bytes(path, dc, k);
+int rfe_flat_scan_blocks_per_sm(int d, int k, int is_l2, int is_bf16, int path, int dc,
+                                int glist) {
+  if (bad_shape(d, k, path, dc, glist)) return -(int)cudaErrorInvalidValue;
+  const void* fn = scan_kernel(is_bf16, is_l2, path, glist);
+  const size_t smem = smem_bytes(path, dc, k, glist);
   cudaError_t e = prepare(fn, smem);
   int blocks = 0;
   if (e == cudaSuccess)
@@ -655,42 +707,62 @@ const char* rfe_cuda_error_string(int err) {
 
 // q (nq, d) and db (>= n_rows, d): both float32 (is_bf16 = 0) or both
 // bfloat16 (is_bf16 = 1), row-major and contiguous. db_sq (n_rows,) float32,
-// read only for L2. part_v / part_i: (nq, n_splits, k) scratch. out_v /
-// out_i: (nq, k_out), k_out >= k. Split s covers rows [s * rows_per_split,
-// (s + 1) * rows_per_split), clipped to n_rows; rows_per_split is a
-// multiple of the path's tile rows. path: 0 = scan_partial (one query per
-// warp), 1 = scan_tiled. dc: columns staged at once (path 0, see
-// bad_shape). vec = 1 allows 16-byte row reads: d a multiple of 4 (f32) or
-// 8 (bf16), db and q 16-byte aligned.
-int rfe_flat_scan(const void* q, const void* db, const void* db_sq,
+// read only for L2. dead: null, or (>= n_rows,) bytes, nonzero = never
+// returned. part_v / part_i: (nq, n_splits, k) scratch. out_v / out_i:
+// (nq, k_out), k_out >= k. Split s covers rows [s * rows_per_split, (s + 1)
+// * rows_per_split), clipped to n_rows; rows_per_split is a multiple of the
+// path's tile rows. path: 0 = scan_partial (one query per warp), 1 =
+// scan_tiled. dc: columns staged at once (path 0, see bad_shape). vec = 1
+// allows 16-byte row reads: d a multiple of 4 (f32) or 8 (bf16), db and q
+// 16-byte aligned. glist = 1 (path 0): stage 1's lists in global memory.
+// Stage 2's lists go to global memory where they do not fit in shared
+// memory, decided here from k and the device.
+int rfe_flat_scan(const void* q, const void* db, const void* db_sq, const void* dead,
                   void* part_v, void* part_i, void* out_v, void* out_i,
                   int nq, int n_rows, int d, int k, int k_out, int is_l2, int is_bf16,
-                  int path, int dc, int rows_per_split, int n_splits, int vec,
+                  int path, int dc, int rows_per_split, int n_splits, int vec, int glist,
                   void* stream) {
   const int tile_rows = rfe_flat_scan_tile_rows(path);
-  if (nq < 1 || n_rows < 1 || n_splits < 1 || bad_shape(d, k, path, dc) || k_out < k ||
-      rows_per_split < 1 || rows_per_split % tile_rows != 0 || (is_l2 && !db_sq))
+  if (nq < 1 || n_rows < 1 || n_splits < 1 || bad_shape(d, k, path, dc, glist) ||
+      k_out < k || rows_per_split < 1 || rows_per_split % tile_rows != 0 || (is_l2 && !db_sq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* fn = scan_kernel(is_bf16, is_l2, path);
-  const size_t smem = smem_bytes(path, dc, k);
+  const void* fn = scan_kernel(is_bf16, is_l2, path, glist);
+  const size_t smem = smem_bytes(path, dc, k, glist);
   cudaError_t e = prepare(fn, smem);
   if (e != cudaSuccess) return (int)e;
   const int tq = rfe_flat_scan_block_queries(path);
   const dim3 grid((nq + tq - 1) / tq, n_splits);
   if (path == TILED) {
-    void* args[] = {&q, &db, &db_sq, &part_v, &part_i, &nq, &n_rows, &d, &k,
+    void* args[] = {&q, &db, &db_sq, &dead, &part_v, &part_i, &nq, &n_rows, &d, &k,
                     &rows_per_split, &vec};
     e = cudaLaunchKernel(fn, grid, dim3(THREADS), args, smem, s);
   } else {
-    void* args[] = {&q, &db, &db_sq, &part_v, &part_i, &nq, &n_rows, &d, &k,
+    void* args[] = {&q, &db, &db_sq, &dead, &part_v, &part_i, &nq, &n_rows, &d, &k,
                     &dc, &rows_per_split, &vec};
     e = cudaLaunchKernel(fn, grid, dim3(THREADS), args, smem, s);
   }
   if (e != cudaSuccess) return (int)e;
+  // stage 2's lists: in shared memory (opted in above the default 48 KB),
+  // or where the card's shared memory cannot hold them, in global memory
+  size_t msmem = merge_smem_bytes(k);
+  int mglist = 0;
+  if (msmem > 48 * 1024) {
+    int device = 0, optin = 0;
+    e = cudaGetDevice(&device);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (e != cudaSuccess) return (int)e;
+    if (msmem + sizeof(float) * NWARPS > (size_t)optin) {
+      mglist = 1;
+      msmem = 0;
+    }
+  }
+  const void* mfn = merge_kernel(is_bf16, is_l2, mglist);
+  if (msmem > 48 * 1024 && (e = prepare(mfn, msmem)) != cudaSuccess) return (int)e;
   int n_cand = n_splits * k;
   void* margs[] = {&part_v, &part_i, (void*)&q, &out_v, &out_i, &n_cand, &k, &k_out, &d};
-  e = cudaLaunchKernel(merge_kernel(is_bf16, is_l2), dim3(nq), dim3(THREADS), margs, 0, s);
+  e = cudaLaunchKernel(mfn, dim3(nq), dim3(THREADS), margs, msmem, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -71,6 +71,7 @@
 
 #include "async_copy.cuh"
 #include "launch.cuh"
+#include "mma_tile.cuh"
 
 #define MAX_CAP 4
 #define TN 64        // slots (rows of one list block) per stage-1 block
@@ -327,23 +328,8 @@ scan_bins_tc(const __nv_bfloat16* __restrict__ q, const int* __restrict__ u_all,
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-      const __nv_bfloat16* A = rows + (buf * TN + wm * 32 + (lane & 15)) * ld + (lane >> 4) * 8;
-      const __nv_bfloat16* B = qs + (wn * 32 + (lane >> 4) * 8 + (lane & 7)) * ld +
-                               ((lane >> 3) & 1) * 8;
-#pragma unroll 4
-      for (int kk = 0; kk < d; kk += 16) {
-        unsigned a[2][4], b[2][4];
-        ldmatrix_x4(a[0], A + kk);
-        ldmatrix_x4(a[1], A + 16 * ld + kk);
-        ldmatrix_x4(b[0], B + kk);            // queries 0-15 of the warp's 32
-        ldmatrix_x4(b[1], B + 16 * ld + kk);  // queries 16-31
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_bf16_16816(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2],
-                           b[nt >> 1][(nt & 1) * 2 + 1]);
-      }
+      warp_tile_product<2>(acc, mma_rows_ptr(rows + (buf * TN + wm * 32) * ld, ld, lane),
+                           mma_queries_ptr(qs + wn * 32 * ld, ld, lane), ld, d);
       // element e of tile (mt, nt): slot wm*32 + mt*16 + g + 8*(e >> 1),
       // query wn*32 + nt*8 + 2t + (e & 1)
 #pragma unroll

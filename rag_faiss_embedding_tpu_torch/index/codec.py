@@ -14,13 +14,13 @@ import torch
 __all__ = ["to_host", "from_host"]
 
 
-def to_host(t: torch.Tensor) -> np.ndarray:
+def to_host(arr: torch.Tensor) -> np.ndarray:
     """savez-able numpy copy of a tensor (bf16 -> uint16 bits, exact; every
     other dtype passes through)."""
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16)
-    return t.numpy()
+    arr = arr.detach().cpu()
+    if arr.dtype == torch.bfloat16:
+        return arr.view(torch.int16).numpy().view(np.uint16)
+    return arr.numpy()
 
 
 def from_host(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:

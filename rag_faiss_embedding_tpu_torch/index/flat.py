@@ -12,12 +12,11 @@ Counterpart of ``rag_faiss_embedding_tpu/index/flat.py`` (the
 - ``state_dict`` writes the JAX package's npz layout, so either package
   loads the other's index.
 
-Search on a CUDA index with no tombstones or filter runs the CUDA flat-scan
-kernel (``ops/flat_scan.py``). With a mask it runs the plain chunked scan
-(``ops/distance.py``) on the card, as the JAX package runs its lax scan when
-its kernel has no mask operand. A CPU index runs the plain scan. A CUDA
-index serves k up to the kernel's ``KMAX`` (64), masked or not; ``check_k``
-raises ``ValueError`` above it.
+Every search goes to the flat-scan wrapper (``ops/flat_scan.flat_search``):
+on a CUDA index it launches the kernel, at any k and with tombstones and
+filters as the kernel's row mask; on a CPU index it runs the plain chunked
+scan (``ops/distance.exact_search``). A kernel error raises.
+``flat_search.launches`` counts the card's searches.
 
 Not ported yet: int8 storage and the "approx" / "rerank" selectors (the int8
 tier).
@@ -67,6 +66,7 @@ class FlatIndex:
         dtype: str | torch.dtype = "float32",
         capacity: int = _ROW_ALIGN,
         device: Optional[torch.device | str] = None,
+        use_pallas: Optional[bool] = None,
         selector: str = "exact",
     ):
         if selector in ("approx", "rerank"):
@@ -82,6 +82,9 @@ class FlatIndex:
         self.dtype_name = _dtype_name(dtype)
         self.dtype = _DTYPES[self.dtype_name]
         self.selector = selector
+        # taken so that JAX calls run; no effect: the JAX index picks its
+        # kernel or its lax scan with it, and the port's card has one route
+        self._use_pallas = use_pallas
         self.device = torch.device(device) if device is not None else default_device()
         self.ntotal = 0
         self._capacity = _round_up(int(capacity), _ROW_ALIGN)
@@ -150,12 +153,6 @@ class FlatIndex:
         return newly
 
     # ------------------------------------------------------------- search
-    def check_k(self, k: int) -> None:
-        """Raise ``ValueError`` for a k this index cannot serve (above the
-        kernel's ``KMAX`` on a CUDA index; any k on the CPU)."""
-        if self.device.type == "cuda":
-            flat_scan.check_k(k)
-
     def search(self, queries, k: int, chunk_size: int = 524288,
                filter_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Exact top-k. Returns (values, indices) on the index's device,
@@ -164,7 +161,6 @@ class FlatIndex:
 
         ``filter_mask``: optional (ntotal,) bool, True = searchable (the
         FAISS ``IDSelector`` analog), applied inside the scan."""
-        self.check_k(k)
         q = dist_ops.as_tensor(queries)
         if q.ndim == 1:
             q = q[None, :]
@@ -185,13 +181,9 @@ class FlatIndex:
             block = torch.cat([block, block.new_zeros(self._capacity - self.ntotal)])
             dead = block if dead is None else (dead | block)
         q = q.to(device=self.device, dtype=self.dtype)
-        if self.device.type == "cuda" and dead is None:
-            return flat_scan.flat_search(
-                q, self._buf, k, metric=self.metric,
-                db_sq=self._sq, n_valid=self.ntotal)
-        return dist_ops.exact_search(
+        return flat_scan.flat_search(
             q, self._buf, k, metric=self.metric, db_sq=self._sq,
-            n_valid=self.ntotal, chunk_size=chunk_size, dead=dead)
+            n_valid=self.ntotal, dead=dead, chunk_size=chunk_size)
 
     # ------------------------------------------------------------- manage
     def reset(self) -> None:

@@ -585,13 +585,6 @@ class IVFFlatIndex:
             self._pending_rowids_dev = torch.as_tensor(ids, device=self.device)
         return (self._pending._buf, None, self._pending._sq, self._pending_rowids_dev)
 
-    def check_k(self, k: int) -> None:
-        """Raise ``ValueError`` for a k this index cannot serve: only an
-        index whose rows all sit in the pending tier searches it through the
-        flat-scan kernel, with its k limit on the card."""
-        if self._n_built == 0:
-            self._pending.check_k(k)
-
     def search(self, queries, k: int, nprobe: Optional[int] = None,
                filter_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Probe-limited top-k: (values, ids), (Q, k), on the index's device.

@@ -166,9 +166,6 @@ class PQIndex:
         return newly
 
     # ------------------------------------------------------------- search
-    def check_k(self, k: int) -> None:
-        """Any k is served (no flat-scan kernel limit applies)."""
-
     def search(self, queries, k: int, chunk_size: int = 524288,
                filter_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """ADC top-k: (values, ids), (Q, k), on the index's device; the

@@ -9,9 +9,12 @@ ids without the sidecar, ``remove_doc_ids`` and ``allowed_doc_ids``
 filtering. The files are the JAX package's format: each package loads the
 other's.
 
-The "flat", "ivf" (dense and IVF-PQ) and "pq" index kinds are ported; the
-sharded kinds come with the multi-GPU tier. FAISS binary import comes with
-``faiss_import``.
+The "flat", "ivf" (dense and IVF-PQ) and "pq" index kinds are ported. A
+"sharded_flat" file (the JAX ``ShardedFlatIndex``) holds ``FlatIndex``'s
+payload, so it loads as a one-card ``FlatIndex``, tombstones included, as
+the JAX store loads it over one device; a re-save from the port writes
+kind "flat", which the JAX store loads too. "sharded_ivf" comes with the
+multi-GPU tier. FAISS binary import comes with ``faiss_import``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,6 @@ logger = get_logger(__name__)
 
 # index kinds of the JAX package that this port does not load yet
 _LATER_KINDS = {
-    "sharded_flat": "the multi-GPU tier",
     "sharded_ivf": "the multi-GPU tier",
 }
 
@@ -164,7 +166,7 @@ class VectorStore:
         if kind in _LATER_KINDS:
             raise NotImplementedError(
                 f"index kind {kind!r} is not ported yet ({_LATER_KINDS[kind]})")
-        if kind == "flat":
+        if kind in ("flat", "sharded_flat"):
             self.index = FlatIndex.from_state_dict(
                 {k: (v if k == "vectors" else v.item() if v.ndim == 0 else v)
                  for k, v in state.items()},

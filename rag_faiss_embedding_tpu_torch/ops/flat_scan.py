@@ -12,10 +12,13 @@ fills (also when ``k`` exceeds ``n_valid`` inside a padded buffer).
   values, and no other device work follows. The tile sizes are the kernel's
   own, so the TPU version's ``tile_q`` / ``tile_n`` / ``interpret``
   arguments are gone. Any width D fits (wide rows are staged in column
-  chunks); k is at most ``KMAX`` (``check_k`` raises ``ValueError`` above
-  it). Stage 1 takes one of two paths by the number of queries
-  (``choose_path``): one query per warp, or the register-tiled block of 128
-  queries x 128 rows.
+  chunks), and any k: stage 1 takes one of two paths by the number of
+  queries and k (``choose_path``), one query per warp (any k) or the
+  register-tiled block of 128 queries x 128 rows (k <= ``KMAX``). Above
+  ``KMAX`` each split covers at least ``LONG_ROWS_PER_K`` x k rows, and
+  lists too long for shared memory live in global memory.
+- ``dead`` (optional, bool, True = never returned) masks rows inside the
+  kernel: tombstones and filters take the same route as a plain search.
 - On a CPU tensor it runs ``flat_search_reference``, the same contract in
   plain torch (``ops/distance.exact_search``).
 
@@ -40,9 +43,12 @@ from .distance import as_tensor, exact_search, sqnorms
 # cost more insertions (``benchmarks/scan_kernels.py --waves`` times it)
 _WAVES = 8
 _TILED_WAVES = 1
-# largest k the kernel's lists hold: csrc/flat_scan.cu's KMAX (load() checks
-# that the two agree)
+# largest k of the tiled path and of the lists that shift through
+# registers: csrc/flat_scan.cu's KMAX (load() checks that the two agree)
 KMAX = 64
+# above KMAX, the fewest rows per stage-1 split, in units of k: a split's
+# list fills from its first k rows, and stage 2 merges k per split
+LONG_ROWS_PER_K = 8
 # column chunks tried, widest first, when a whole row does not fit a tile
 _CHUNK_COLS = (1024, 512, 256, 128)
 # stage-1 paths (csrc/flat_scan.cu's Path)
@@ -54,19 +60,13 @@ PATHS = {"warp": WARP, "tiled": TILED}
 TILED_MIN_Q = 25
 
 
-def check_k(k: int) -> None:
-    """Raise ``ValueError`` for a k the kernel cannot serve."""
-    if k > KMAX:
-        raise ValueError(
-            f"k={k} exceeds the CUDA flat scan's limit KMAX={KMAX}")
-
-
-def choose_path(nq: int) -> int:
-    """The stage-1 path for ``nq`` queries: one query per warp below
-    ``TILED_MIN_Q`` (each block of 8 queries reads the database once, and the
-    tiled block's 128 query rows would be mostly padding), the tiled block
-    from there."""
-    return TILED if nq >= TILED_MIN_Q else WARP
+def choose_path(nq: int, k: int = 1) -> int:
+    """The stage-1 path for ``nq`` queries and ``k`` hits: one query per
+    warp below ``TILED_MIN_Q`` (each block of 8 queries reads the database
+    once, and the tiled block's 128 query rows would be mostly padding) or
+    above ``KMAX`` (the tiled block holds 128 lists of k in shared memory),
+    the tiled block otherwise."""
+    return TILED if nq >= TILED_MIN_Q and k <= KMAX else WARP
 
 
 def flat_search_reference(
@@ -77,9 +77,13 @@ def flat_search_reference(
     metric: str = "L2",
     db_sq: Optional[torch.Tensor] = None,
     n_valid: Optional[int] = None,
+    dead: Optional[torch.Tensor] = None,
+    chunk_size: int = 524288,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of the kernel, on any device."""
-    return exact_search(q, db, k, metric=metric, db_sq=db_sq, n_valid=n_valid)
+    """Plain torch version of the kernel, on any device; ``chunk_size``
+    rows per step."""
+    return exact_search(q, db, k, metric=metric, db_sq=db_sq, n_valid=n_valid,
+                        chunk_size=chunk_size, dead=dead)
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,7 +92,7 @@ def load() -> ctypes.CDLL:
     points."""
     lib = _build.load("flat_scan")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rfe_flat_scan.argtypes = [vp] * 7 + [ci] * 12 + [vp]
+    lib.rfe_flat_scan.argtypes = [vp] * 8 + [ci] * 13 + [vp]
     lib.rfe_flat_scan.restype = ci
     lib.rfe_flat_scan_kmax.argtypes = []
     lib.rfe_flat_scan_kmax.restype = ci
@@ -96,7 +100,7 @@ def load() -> ctypes.CDLL:
     lib.rfe_flat_scan_tile_rows.restype = ci
     lib.rfe_flat_scan_block_queries.argtypes = [ci]
     lib.rfe_flat_scan_block_queries.restype = ci
-    lib.rfe_flat_scan_blocks_per_sm.argtypes = [ci] * 6
+    lib.rfe_flat_scan_blocks_per_sm.argtypes = [ci] * 7
     lib.rfe_flat_scan_blocks_per_sm.restype = ci
     lib.rfe_cuda_error_string.argtypes = [ci]
     lib.rfe_cuda_error_string.restype = ctypes.c_char_p
@@ -115,46 +119,52 @@ def chunk_widths(d: int) -> Tuple[int, ...]:
 
 
 def plan_splits(nq: int, n_rows: int, block_queries: int, tile_rows: int,
-                capacity: int, waves: int = _WAVES) -> Tuple[int, int]:
+                capacity: int, waves: int = _WAVES,
+                min_rows: int = 0) -> Tuple[int, int]:
     """(rows_per_split, n_splits) for stage 1. Q tiles alone give one block
     at Q = 1, so the database is split too, aiming at ``waves`` times the
     ``capacity`` (blocks the card holds at once), with every split a whole
-    number of tiles and none empty."""
+    number of tiles, none empty, and none under ``min_rows`` rows where the
+    database has them."""
     q_blocks = -(-nq // block_queries)
     n_tiles = -(-n_rows // tile_rows)
     want = max(1, -(-waves * capacity // q_blocks))
-    tiles_per_split = -(-n_tiles // want)
+    tiles_per_split = min(n_tiles, max(-(-n_tiles // want), -(-min_rows // tile_rows)))
     n_splits = -(-n_tiles // tiles_per_split)
     return tiles_per_split * tile_rows, n_splits
 
 
 @functools.lru_cache(maxsize=None)
 def _launch_shape(device_index: int, d: int, k: int, is_l2: bool,
-                  is_bf16: bool, path: int) -> Tuple[int, int]:
-    """(columns per chunk, blocks the card holds at once) for a shape and
-    path. The tiled path stages 16 columns at a time whatever D is; the
-    one-query-per-warp path takes the widest chunk that fits."""
+                  is_bf16: bool, path: int) -> Tuple[int, int, int]:
+    """(columns per chunk, lists in global memory, blocks the card holds at
+    once) for a shape and path, chosen before any launch. The tiled path
+    stages 16 columns at a time whatever D is; the one-query-per-warp path
+    takes the widest chunk that fits with its lists in shared memory, and
+    only where none does (k in the thousands) keeps them in global memory."""
     lib = load()
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    for dc in ((0,) if path == TILED else chunk_widths(d)):
-        per_sm = lib.rfe_flat_scan_blocks_per_sm(d, k, is_l2, is_bf16, path, dc)
-        if per_sm > 0:
-            return dc, per_sm * sms
+    for glist in ((0,) if path == TILED else (0, 1)):
+        for dc in ((0,) if path == TILED else chunk_widths(d)):
+            per_sm = lib.rfe_flat_scan_blocks_per_sm(d, k, is_l2, is_bf16, path, dc, glist)
+            if per_sm > 0:
+                return dc, glist, per_sm * sms
     raise RuntimeError(f"no flat-scan launch shape fits dim {d}, k={k}")
 
 
-def _kernel_search(q, db, db_sq, n_rows: int, k: int, k_out: int, metric: str,
+def _kernel_search(q, db, db_sq, dead, n_rows: int, k: int, k_out: int, metric: str,
                    path: int):
     lib = load()
     nq, d = q.shape
     dev = db.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     is_l2, is_bf16 = metric == "L2", db.dtype == torch.bfloat16
-    dc, capacity = _launch_shape(index, d, k, is_l2, is_bf16, path)
+    dc, glist, capacity = _launch_shape(index, d, k, is_l2, is_bf16, path)
     rows_per_split, n_splits = plan_splits(
         nq, n_rows, lib.rfe_flat_scan_block_queries(path),
         lib.rfe_flat_scan_tile_rows(path), capacity,
-        _TILED_WAVES if path == TILED else _WAVES)
+        _TILED_WAVES if path == TILED else _WAVES,
+        LONG_ROWS_PER_K * k if k > KMAX else 0)
     vec = int(d % (8 if is_bf16 else 4) == 0 and db.data_ptr() % 16 == 0
               and q.data_ptr() % 16 == 0)
     # two allocations (scratch; values and ids): on the single-request path
@@ -164,9 +174,10 @@ def _kernel_search(q, db, db_sq, n_rows: int, k: int, k_out: int, metric: str,
     p, o = part.data_ptr(), out.data_ptr()
     err = lib.rfe_flat_scan(
         q.data_ptr(), db.data_ptr(), db_sq.data_ptr() if is_l2 else None,
+        None if dead is None else dead.data_ptr(),
         p, p + 4 * nq * n_splits * k, o, o + 4 * nq * k_out,
         nq, n_rows, d, k, k_out, int(is_l2), int(is_bf16), path, dc,
-        rows_per_split, n_splits, vec, torch._C._cuda_getCurrentRawStream(index),
+        rows_per_split, n_splits, vec, glist, torch._C._cuda_getCurrentRawStream(index),
     )
     if err != 0:
         raise RuntimeError(
@@ -184,13 +195,17 @@ def flat_search(
     metric: str = "L2",
     db_sq=None,
     n_valid: Optional[int] = None,
+    dead=None,
+    chunk_size: int = 524288,
     path: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact fused top-k scan; same contract as ``ops.distance.exact_search``.
 
     ``q`` (Q, D) and ``db`` (N, D) share a dtype (float32 or bfloat16);
     ``db_sq`` is the float32 row squared norms (computed if omitted, for
-    L2); rows >= ``n_valid`` are padding. ``path`` ("warp" or "tiled")
+    L2); rows >= ``n_valid`` are padding; ``dead`` (N,) bool marks rows
+    that never come back (tombstones, filters). ``chunk_size`` is the plain
+    version's rows per step (CPU tensors). ``path`` ("warp" or "tiled")
     forces a stage-1 path on the card, to measure the paths against each
     other; by default ``choose_path`` picks it.
     """
@@ -200,8 +215,7 @@ def flat_search(
     q = as_tensor(q, device=db.device)
     if db.device.type != "cuda":
         return flat_search_reference(q, db, k, metric=metric, db_sq=db_sq,
-                                     n_valid=n_valid)
-    check_k(k)
+                                     n_valid=n_valid, dead=dead, chunk_size=chunk_size)
     if q.dtype != db.dtype or db.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(
             f"flat_search takes float32 or bfloat16 q and db of one dtype, "
@@ -216,13 +230,19 @@ def flat_search(
         db_sq = as_tensor(db_sq, db.device, torch.float32).contiguous()
     n_rows = n if n_valid is None else max(0, min(int(n_valid), n))
     k_eff = min(k, n)
+    if dead is not None:
+        dead = as_tensor(dead, db.device, torch.bool).contiguous()
+        if dead.shape[0] < n_rows:
+            raise ValueError(f"dead has {dead.shape[0]} entries for {n_rows} rows")
+    path_id = choose_path(nq, k_eff) if path is None else PATHS[path]
+    if path_id == TILED and k_eff > KMAX:
+        raise ValueError(f"the tiled path holds k <= KMAX={KMAX}, got k={k_eff}")
 
     if nq == 0 or n_rows == 0 or k_eff == 0:  # no row to return
         fill = float("inf") if metric == "L2" else float("-inf")
         return (torch.full((nq, k), fill, device=db.device),
                 torch.full((nq, k), -1, dtype=torch.int32, device=db.device))
-    return _kernel_search(q, db, db_sq, n_rows, k_eff, k, metric,
-                          choose_path(nq) if path is None else PATHS[path])
+    return _kernel_search(q, db, db_sq, dead, n_rows, k_eff, k, metric, path_id)
 
 
 flat_search.launches = 0

@@ -17,9 +17,18 @@ and output layout:
 
 Output: (chunks, ucap / bb, qc, kp) float32 scores and int32 ids.
 
-- On CUDA tensors it launches ``csrc/fused_proto.cu`` or raises.
+- On CUDA tensors it launches ``csrc/fused_proto.cu`` or raises. The kernel
+  is chosen by shape before the launch: the tensor-core block (bf16
+  ``mma.sync``, f32 accumulation) where D is a multiple of 16 and its
+  shared memory fits (D <= 400 on an H100), the FMA block elsewhere.
 - On CPU tensors it runs ``block_topk_reference``, the same contract in
   plain torch.
+
+The plain version sums each score's exact bf16 products in column order
+(``ordered_dot``): the FMA block's order, so the two agree bit for bit. The
+tensor cores sum in another order, so the tensor-core block agrees with the
+plain version to float32 rounding, and its ids may differ from the plain
+version's only where two scores are that close.
 
 ``block_topk.launches`` counts kernel launches.
 """
@@ -60,9 +69,9 @@ def _check_args(qs, u_all, codes3, sq2, ids2, bb, kp):
 
 def ordered_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(a * b).sum(-1)`` over broadcast float32 operands, summed in index
-    order from +0 into one accumulator per output: the kernels' order. A
+    order from +0 into one accumulator per output: the FMA kernels' order. A
     product of two bf16 values is exact in float32, so on bf16 inputs this
-    gives the kernels' bits."""
+    gives the FMA kernels' bits."""
     acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]),
                       dtype=torch.float32, device=a.device)
     for c in range(a.shape[-1]):
@@ -90,8 +99,7 @@ def extract_topk(scores: torch.Tensor, gidx: torch.Tensor,
 def block_topk_reference(qs, u_all, codes3, sq2, ids2, *, bb: int,
                          kp: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of the kernel, on any device: each chunk's cells
-    scored in the kernel's summation order (``ordered_dot``, so the scores
-    are the kernel's bits), then ``extract_topk``."""
+    scored in column order (``ordered_dot``), then ``extract_topk``."""
     _check_args(qs, u_all, codes3, sq2, ids2, bb, kp)
     chunks, qc, d = qs.shape
     window = codes3.shape[1]
@@ -123,12 +131,28 @@ def load() -> ctypes.CDLL:
     lib.rfe_fused_proto_kp_max.restype = ci
     lib.rfe_fused_proto_tile_rows.argtypes = []
     lib.rfe_fused_proto_tile_rows.restype = ci
+    lib.rfe_fused_proto_tc_fits.argtypes = [ci]
+    lib.rfe_fused_proto_tc_fits.restype = ci
     lib.rfe_fused_proto_error_string.argtypes = [ci]
     lib.rfe_fused_proto_error_string.restype = ctypes.c_char_p
     if lib.rfe_fused_proto_kp_max() != KP_MAX:
         raise RuntimeError(f"fused_proto.cu has KPMAX={lib.rfe_fused_proto_kp_max()}, "
                            f"ops/fused_proto.py has {KP_MAX}")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def uses_tensor_cores(device_index: int, d: int) -> bool:
+    """Whether ``block_topk`` runs the tensor-core block for width ``d`` on
+    the card (else the FMA block): D a multiple of 16 whose block fits in
+    the card's shared memory. The kernel's entry point makes the same
+    choice by shape before its launch; this asks it, for reporting."""
+    lib = load()
+    with torch.cuda.device(device_index):
+        fits = lib.rfe_fused_proto_tc_fits(d)
+    if fits < 0:
+        raise RuntimeError("fused_proto: " + lib.rfe_fused_proto_error_string(-fits).decode())
+    return bool(fits)
 
 
 def block_topk(qs, u_all, codes3, sq2, ids2, *, bb: int,

@@ -23,8 +23,18 @@ Inputs: ``u_all`` (chunks, U) int32; ``qs`` (chunks, qc, D) bf16;
 (row 0 the float32 bits of ||x||^2, row 1 the ids). Output (chunks, qc,
 cap * window) int32, level major.
 
-- On CUDA tensors it launches ``csrc/kernel_probe.cu`` or raises.
+- On CUDA tensors it launches ``csrc/kernel_probe.cu`` or raises. The
+  kernel is chosen by shape before the launch: the tensor-core block (bf16
+  ``mma.sync``, f32 accumulation) where D is a multiple of 16 and its
+  shared memory fits, the FMA block elsewhere. Both walk the U blocks in
+  order inside one CUDA block.
 - On CPU tensors it runs ``probe_reference``.
+
+The plain version sums each score's exact bf16 products in column order
+(``ordered_dot``): the FMA block's order, so the two agree bit for bit. The
+tensor cores sum in another order, so a packed value of the tensor-core
+block may differ from the plain version's by float32 rounding and, where two
+blocks' scores of one bin are that close, carry the other block's position.
 
 ``probe.launches`` counts kernel launches, ``probe.variant_launches`` splits
 them by variant.
@@ -76,9 +86,9 @@ def _nan_min(a, b):
 
 def probe_reference(variant: str, u_all, qs, codes3, aux3, *, bb: int,
                     cap: int) -> torch.Tensor:
-    """Plain torch version of the kernel, on any device: all packed scores in
-    the kernel's summation order (``ordered_dot``, so the packed ints are the
-    kernel's bits), then the chain over the U blocks in order."""
+    """Plain torch version of the kernel, on any device: all packed scores
+    summed in column order (``ordered_dot``), then the chain over the U
+    blocks in order."""
     _check_args(variant, u_all, qs, codes3, aux3, bb, cap)
     chunks, qc, d = qs.shape
     window = codes3.shape[1]
@@ -129,12 +139,28 @@ def load() -> ctypes.CDLL:
     lib.rfe_kernel_probe_max_cap.restype = ci
     lib.rfe_kernel_probe_tile_rows.argtypes = []
     lib.rfe_kernel_probe_tile_rows.restype = ci
+    lib.rfe_kernel_probe_tc_fits.argtypes = [ci, ci]
+    lib.rfe_kernel_probe_tc_fits.restype = ci
     lib.rfe_kernel_probe_error_string.argtypes = [ci]
     lib.rfe_kernel_probe_error_string.restype = ctypes.c_char_p
     if lib.rfe_kernel_probe_max_cap() != MAX_CAP:
         raise RuntimeError(f"kernel_probe.cu has MAX_CAP={lib.rfe_kernel_probe_max_cap()}, "
                            f"ops/kernel_probe.py has {MAX_CAP}")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def uses_tensor_cores(device_index: int, d: int, cap: int) -> bool:
+    """Whether ``probe`` runs the tensor-core block for width ``d`` and
+    ``cap`` on the card (else the FMA block): D a multiple of 16 whose block
+    fits in the card's shared memory. The kernel's entry point makes the
+    same choice by shape before its launch; this asks it, for reporting."""
+    lib = load()
+    with torch.cuda.device(device_index):
+        fits = lib.rfe_kernel_probe_tc_fits(d, cap)
+    if fits < 0:
+        raise RuntimeError("kernel_probe: " + lib.rfe_kernel_probe_error_string(-fits).decode())
+    return bool(fits)
 
 
 def probe(variant: str, u_all, qs, codes3, aux3, *, bb: int, cap: int) -> torch.Tensor:
@@ -161,11 +187,12 @@ def probe(variant: str, u_all, qs, codes3, aux3, *, bb: int, cap: int) -> torch.
     qs, u_all = qs.contiguous(), u_all.contiguous()
     codes3, aux3 = codes3.contiguous(), aux3.contiguous()
     nbits = packing_bits(u)
-    out = torch.empty((chunks, qc, cap * window), dtype=torch.int32, device=qs.device)
+    dev = qs.device
+    out = torch.empty((chunks, qc, cap * window), dtype=torch.int32, device=dev)
     err = lib.rfe_kernel_probe(
         VARIANTS.index(variant), qs.data_ptr(), u_all.data_ptr(), codes3.data_ptr(),
         aux3.data_ptr(), out.data_ptr(), chunks, qc, d, u, window, bb, cap, nbits,
-        init_packed(nbits), torch.cuda.current_stream(qs.device).cuda_stream)
+        init_packed(nbits), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("kernel_probe launch failed: "
                            + lib.rfe_kernel_probe_error_string(err).decode())

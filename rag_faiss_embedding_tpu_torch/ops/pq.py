@@ -168,12 +168,15 @@ def pq_search(
     dead: Optional[torch.Tensor] = None,
     compute_dtype: str = "bf16",
     pq_w: Optional[bool] = None,
+    interpret: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked ADC scan over the first ``n_valid`` of (N, M) ``codes``; the
     contract of ``ops/distance.exact_search`` with distances TO THE
     RECONSTRUCTION (L2 ascending, IP descending), ``dead`` rows masked,
     k > N padded with -1 / inf. Returns (values, ids) on the codes'
-    device."""
+    device. ``pq_w`` decodes through the kernel's wrapper (``pq_decode.
+    decode``), else the plain decode; the port has no interpret mode, so
+    ``interpret=True`` takes the plain decode too."""
     if metric not in ("L2", "IP"):
         raise ValueError(f"metric must be 'L2' or 'IP', got {metric!r}")
     if compute_dtype not in ("bf16", "f32"):
@@ -187,7 +190,7 @@ def pq_search(
         cb_s, qs = codebooks.to(torch.bfloat16), qf.to(torch.bfloat16).float()
     else:
         cb_s, qs = codebooks.float(), qf
-    dec_fn = decode if pq_w else decode_reference
+    dec_fn = decode if pq_w and not interpret else decode_reference
     n_valid = int(n_valid)
     best_v = torch.full((nq, k_eff), NEG_INF, dtype=torch.float32, device=dev)
     best_i = torch.full((nq, k_eff), -1, dtype=torch.int32, device=dev)

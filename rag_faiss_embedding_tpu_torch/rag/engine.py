@@ -69,11 +69,9 @@ class QueryEngine:
         ``where``: optional metadata predicate (``Database.select_ids``
         keys, e.g. ``{"url_prefix": "https://docs."}``) — resolved to a
         doc-id allowlist and applied INSIDE the scan (filtered search).
-        An invalid predicate, or a ``top_k`` the index cannot serve (above
-        64 on a CUDA index), raises ``ValueError`` (caller input error);
+        An invalid predicate raises ``ValueError`` (caller input error);
         runtime search failures degrade to an empty result."""
         allowed = self._resolve_where(where)  # ValueError propagates
-        self.vector_store.index.check_k(top_k)  # ValueError propagates
         try:
             emb = self.embedder.embed_query(query)
             return self.search_by_vector(emb, top_k, allowed_doc_ids=allowed)
@@ -113,7 +111,6 @@ class QueryEngine:
         power-of-two bucket: that caps JIT compiles there, and here the
         encoder and the scan kernel take any row count without one."""
         allowed = self._resolve_where(where)
-        self.vector_store.index.check_k(top_k)
         if allowed is not None and not len(allowed):
             return [[] for _ in queries]
         embs = self.embedder.generate_embeddings(queries)

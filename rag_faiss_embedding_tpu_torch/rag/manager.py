@@ -148,11 +148,9 @@ class RAGManager:
     ) -> List[Dict]:
         """Embed -> scan -> fetch with raw distance (``:211-238``).
         ``where``: optional metadata predicate (``Database.select_ids``
-        keys) applied inside the scan. A ``k`` the index cannot serve
-        (above 64 on a CUDA index) raises ``ValueError``; as in the JAX
-        manager, any other failure is logged and gives an empty list."""
+        keys) applied inside the scan. As in the JAX manager, a failure is
+        logged and gives an empty list."""
         k = k or self.config.top_k
-        self.vector_store.index.check_k(k)
         try:
             allowed = self.db.select_ids(where) if where is not None else None
             if allowed is not None and not allowed:

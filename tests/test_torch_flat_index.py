@@ -99,15 +99,55 @@ def test_unported_options_raise():
         TFlat(8, metric="cosine", device="cpu")
 
 
-def test_card_index_rejects_k_above_kmax(rng, tmp_path):
-    """A CUDA index serves k up to the kernel's KMAX and raises ValueError
-    above it, masked or not, before any tensor work; the engine and the
-    manager let that error through instead of answering with no documents.
-    The index here lives on the CPU and only claims the card, which is all
-    the check reads."""
+@pytest.mark.parametrize("use_pallas", [None, True, False])
+@pytest.mark.parametrize("k", [1, 64, 65, 1000])
+@pytest.mark.parametrize("masked", [False, True])
+def test_route_by_k_mask_and_use_pallas(monkeypatch, k, masked, use_pallas):
+    """Every search, whatever its k, mask or ``use_pallas`` (taken for the
+    JAX API, no effect), goes to the flat-scan wrapper once, with the mask
+    as its ``dead`` rows: the wrapper launches K1 on a card and runs the
+    plain scan on the CPU. The results are the JAX index's."""
+    from rag_faiss_embedding_tpu_torch.ops import flat_scan
+
+    calls = []
+    real = flat_scan.flat_search
+
+    def recording(*args, **kw):
+        calls.append(kw.get("dead"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(flat_scan, "flat_search", recording)
+    rng = np.random.default_rng(0)
+    vecs = rng.standard_normal((700, 8)).astype(np.float32)
+    j, t = (JFlat(8, use_pallas=False), TFlat(8, device="cpu", use_pallas=use_pallas))
+    for index in (j, t):
+        index.add(vecs)
+        if masked:
+            index.remove_ids([2, 40])
+    ids = _assert_search_same(j, t, vecs[:3] + 0.01, k)
+    assert len(calls) == 1 and (calls[0] is not None) == masked
+    if masked:
+        assert not np.isin(ids, [2, 40]).any()
+        assert bool(calls[0][[2, 40]].all()) and int(calls[0].sum()) == 2
+
+
+@pytest.mark.parametrize("k", [65, 100, 1000])
+def test_cpu_serves_any_k_like_jax(rng, k):
+    j, t = _pair(16)
+    vecs = rng.standard_normal((700, 16)).astype(np.float32)
+    j.add(vecs)
+    t.add(vecs)
+    t.remove_ids([3])
+    j.remove_ids([3])
+    ids = _assert_search_same(j, t, vecs[:3] + 0.01, k)
+    assert (ids[:, 699:] == -1).all() and not (ids == 3).any()
+
+
+def test_query_engine_serves_top_k_100(tmp_path):
+    """The engine, ``search_batch`` and the manager answer a top_k above the
+    card kernel's KMAX (100 of 120 documents), as the JAX engine does."""
     from rag_faiss_embedding_tpu_torch.core import Config
     from rag_faiss_embedding_tpu_torch.models import EmbeddingPipeline, MiniLMConfig
-    from rag_faiss_embedding_tpu_torch.ops import flat_scan
     from rag_faiss_embedding_tpu_torch.rag import QueryEngine, RAGManager
 
     small = MiniLMConfig(vocab_size=256, hidden_size=16, num_layers=1,
@@ -118,21 +158,94 @@ def test_card_index_rejects_k_above_kmax(rng, tmp_path):
                             vocab_path=cfg.data_dir / "vocab.txt")
     m = RAGManager(cfg, embedder=emb, device="cpu")
     docs = [{"url": f"u{i}", "title": f"t{i}", "content": f"note {i} on topic {i % 3}"}
-            for i in range(80)]
+            for i in range(120)]
     m.initialize_database(docs)
     engine = QueryEngine(m.db, m.vector_store, m.embedder)
-    k = flat_scan.KMAX + 1
-    assert len(engine.search("topic 1", top_k=k)) == k  # the CPU serves any k
-    index = m.vector_store.index
-    index.device = torch.device("cuda")
-    index.check_k(flat_scan.KMAX)
-    for call in (lambda: index.search(np.zeros((1, 16), np.float32), k),
-                 lambda: engine.search("topic 1", top_k=k),
-                 lambda: engine.search_batch(["topic 1"], top_k=k),
-                 lambda: m.search_similar_documents("topic 1", k=k)):
-        with pytest.raises(ValueError, match="KMAX"):
-            call()
+    hits = engine.search("topic 1", top_k=100)
+    assert len(hits) == 100 and len({h["id"] for h in hits}) == 100
+    dist = [h["distance"] for h in hits]
+    assert dist == sorted(dist)
+    assert [len(h) for h in engine.search_batch(["topic 1", "note 7"], top_k=100)] == [100, 100]
+    assert len(m.search_similar_documents("topic 1", k=100)) == 100
     m.cleanup()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_card_index_serves_k_above_kmax(masked):
+    """A card index once refused k above the kernel's KMAX; it now serves
+    k = 64, 65, 100, 1,000 and 5,000 (every row; the lists in global
+    memory) through K1, tombstones included (one launch per search), with
+    the CPU index's results under ``assert_same_topk``'s rule: values within
+    rtol 1e-5 x (max ||q||^2 + max ||x||^2), ids that differ only at
+    near-ties."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from rag_faiss_embedding_tpu_torch.ops import flat_scan
+
+    rng = np.random.default_rng(0)  # no conftest on the card
+    vecs = rng.standard_normal((5000, 32)).astype(np.float32)
+    removed = [0, 17, 4999] if masked else []
+    card, cpu = TFlat(32, device="cuda"), TFlat(32, device="cpu")
+    for t in (card, cpu):
+        t.add(vecs)
+        t.remove_ids(removed)
+    n_live = 5000 - len(removed)
+    for nq in (7, 30):  # the warp path either side of TILED_MIN_Q
+        q = rng.standard_normal((nq, 32)).astype(np.float32)
+        atol = 1e-5 * float((q.astype(np.float64) ** 2).sum(1).max()
+                            + (vecs.astype(np.float64) ** 2).sum(1).max())
+        for k in (64, 65, 100, 1000, 5000):
+            launches = flat_scan.flat_search.launches
+            kv, ki = card.search(q, k)
+            torch.cuda.synchronize()
+            assert flat_scan.flat_search.launches == launches + 1
+            cv, ci = cpu.search(q, k)
+            kv, ki = kv.cpu().numpy().astype(np.float64), ki.cpu().numpy()
+            cv = cv.numpy().astype(np.float64)
+            found = min(k, n_live)
+            assert (ki[:, :found] >= 0).all() and (ki[:, found:] == -1).all()
+            assert (cv[:, found:] == np.inf).all() and (kv[:, found:] == np.inf).all()
+            np.testing.assert_allclose(kv[:, :found], cv[:, :found], rtol=1e-5, atol=atol)
+            own = ((q.astype(np.float64)[:, None]
+                    - vecs.astype(np.float64)[ki[:, :found]]) ** 2).sum(-1)
+            np.testing.assert_allclose(kv[:, :found], own, rtol=1e-5, atol=atol)
+            assert all(len(np.unique(row[:found])) == found for row in ki)
+            assert not np.isin(ki, removed).any()
+
+
+def test_jax_saved_sharded_flat_loads_as_flat(rng, tmp_path):
+    """A JAX ``ShardedFlatIndex`` on a one-device mesh, 100 rows and one
+    removed doc id, saved by the JAX ``VectorStore``: the port loads it as a
+    ``FlatIndex`` with its tombstone, searches to the JAX ids and distances,
+    and re-saves it as kind "flat", which JAX loads again."""
+    from rag_faiss_embedding_tpu.core.mesh import make_mesh
+    from rag_faiss_embedding_tpu.parallel import ShardedFlatIndex
+
+    vecs = rng.standard_normal((100, 16)).astype(np.float32)
+    doc_ids = list(range(1000, 1100))
+    jstore = JStore(dimension=16, index_path=tmp_path / "sh.tpu",
+                    index=ShardedFlatIndex(16, mesh=make_mesh({"db": 1})))
+    jstore.add_vectors(vecs, doc_ids)
+    assert jstore.remove_doc_ids([1042]) == 1
+    jstore.save_index()
+    assert str(np.load(tmp_path / "sh.tpu")["kind"]) == "sharded_flat"
+
+    tstore = TStore(dimension=16, index_path=tmp_path / "sh.tpu", device="cpu")
+    assert isinstance(tstore.index, TFlat)
+    assert tstore.ntotal == 100 and tstore.nlive == 99 and tstore.doc_ids == jstore.doc_ids
+    q = vecs[38:46] + 0.01
+    jd, ji = jstore.search(q, k=5)
+    td, ti = tstore.search(q, k=5)
+    assert ti == ji and all(1042 not in row for row in ti)
+    for a, b in zip(td, jd):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
+
+    tstore.save_index(tmp_path / "flat.tpu")
+    assert str(np.load(tmp_path / "flat.tpu")["kind"]) == "flat"
+    again = JStore(dimension=16, index_path=tmp_path / "flat.tpu")
+    again.index._use_pallas = False
+    assert again.search(q, k=5)[1] == ji
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -207,8 +320,8 @@ def test_vector_store_sequential_fallback_and_kinds(rng, tmp_path):
     assert tstore.doc_ids == [0, 1, 2, 3, 4]
     _, ids = tstore.search(vecs[3], k=1)
     assert ids == [3]
-    # a JAX-saved "pq" index loads by its kind; the sharded kinds still
-    # raise, naming their tier
+    # a JAX-saved "pq" index loads by its kind; "sharded_ivf" still raises,
+    # naming its tier
     from rag_faiss_embedding_tpu.index.pq import PQIndex as JPQ
     from rag_faiss_embedding_tpu_torch.index.pq import PQIndex as TPQ
 

@@ -137,12 +137,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _check_kernel_vs_plain(q, db, k, metric, n_valid=None, path=None):
+def _check_kernel_vs_plain(q, db, k, metric, n_valid=None, path=None, dead=None):
     launches = F.flat_search.launches
-    kv, ki = F.flat_search(q, db, k, metric=metric, n_valid=n_valid, path=path)
+    kv, ki = F.flat_search(q, db, k, metric=metric, n_valid=n_valid, path=path, dead=dead)
     torch.cuda.synchronize()
     assert F.flat_search.launches == launches + 1
-    pv, pi = F.flat_search_reference(q, db, k, metric=metric, n_valid=n_valid)
+    pv, pi = F.flat_search_reference(q, db, k, metric=metric, n_valid=n_valid, dead=dead)
     kv, ki, pv, pi = (t.cpu().numpy() for t in (kv, ki, pv, pi))
     assert kv.shape == pv.shape and ki.shape == pi.shape
     rtol = RTOL if db.dtype == torch.float32 else 1e-3
@@ -203,8 +203,8 @@ def test_kernel_edges_on_card(rng, cuda, metric):
     row = db[:1].to(cuda)
     ki = _check_kernel_vs_plain(row, row.repeat(700, 1), 10, metric)
     np.testing.assert_array_equal(ki[0], np.arange(10))
-    with pytest.raises(ValueError, match="KMAX"):
-        F.flat_search(q.to(cuda), db.to(cuda), F.KMAX + 1, metric=metric)
+    with pytest.raises(ValueError, match="KMAX"):  # the tiled path's lists
+        F.flat_search(q.to(cuda), db.to(cuda), F.KMAX + 1, metric=metric, path="tiled")
     with pytest.raises(TypeError):
         F.flat_search(q.to(cuda), db.to(cuda, torch.bfloat16), 4, metric=metric)
 
@@ -233,30 +233,102 @@ def test_every_path_edges_on_card(rng, cuda, path, metric):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["L2", "IP"])
+@pytest.mark.parametrize("nq,n,d,k", [
+    (1, 5000, 384, 65), (7, 3001, 100, 100), (30, 5000, 32, 1000), (1, 20000, 64, 3000),
+    (3, 6000, 32, 5000), (40, 2000, 16, 2000),
+])
+def test_kernel_any_k_matches_plain_on_card(rng, cuda, dtype, metric, nq, n, d, k):
+    """k above KMAX runs the warp path with long lists: in shared memory to
+    k = 3,000 at these widths, in global memory at 5,000 (stage 1 and
+    stage 2); every split covers at least LONG_ROWS_PER_K x k rows."""
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
+    db = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    ki = _check_kernel_vs_plain(q.to(cuda, dtype), db.to(cuda, dtype), k, metric)
+    assert (ki[:, :min(k, n)] >= 0).all() and (ki[:, n:] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["warp", "tiled"])
+@pytest.mark.parametrize("metric", ["L2", "IP"])
+@pytest.mark.parametrize("k", [10, 64, 200])
+def test_kernel_dead_rows_on_card(rng, cuda, path, metric, k):
+    """Rows marked dead never come back, on each path (k = 200 on the warp
+    path only), and the rest are the plain version's."""
+    if path == "tiled" and k > F.KMAX:
+        k = F.KMAX
+    db = torch.from_numpy(rng.standard_normal((4000, 96)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((40, 96)).astype(np.float32)).to(cuda)
+    dead = torch.zeros(4096, dtype=torch.bool, device=cuda)
+    dead[torch.randperm(4000, device=cuda)[:1500]] = True
+    ki = _check_kernel_vs_plain(q, db, k, metric, path=path, dead=dead, n_valid=4000)
+    assert not dead[torch.from_numpy(ki).to(cuda).clamp_min(0).long()][
+        torch.from_numpy(ki >= 0).to(cuda)].any()
+    everything = torch.ones(4096, dtype=torch.bool, device=cuda)
+    kv, ki = F.flat_search(q, db, k, metric=metric, path=path, dead=everything, n_valid=4000)
+    assert (ki == -1).all().item()
+
+
+@pytest.mark.cuda
 def test_no_device_work_after_the_two_launches(rng, cuda):
     """On a CUDA tensor a search is the two kernels and nothing else: the
-    epilogue (distances, -1 / inf fill) is in stage 2."""
+    epilogue (distances, -1 / inf fill) is in stage 2. So is a search above
+    KMAX, and one with dead rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     db = torch.from_numpy(rng.standard_normal((5000, 384)).astype(np.float32)).to(cuda)
     db_sq = (db * db).sum(1)
-    for nq in (1, 100):
+    dead = torch.zeros(5000, dtype=torch.bool, device=cuda)
+    dead[::7] = True
+    for nq, k, mask in ((1, 10, None), (100, 10, None), (1, 100, None), (100, 10, dead)):
         q = torch.from_numpy(rng.standard_normal((nq, 384)).astype(np.float32)).to(cuda)
-        F.flat_search(q, db, 10, db_sq=db_sq)  # built and warm
+        F.flat_search(q, db, k, db_sq=db_sq, dead=mask)  # built and warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            F.flat_search(q, db, 10, db_sq=db_sq, n_valid=4000)
+            F.flat_search(q, db, k, db_sq=db_sq, n_valid=4000, dead=mask)
             torch.cuda.synchronize()
         names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
         assert len(names) == 2, names
         assert any("scan" in n for n in names) and any("merge_partials" in n for n in names)
 
 
-def test_check_k_rejects_above_kmax():
-    F.check_k(F.KMAX)
-    with pytest.raises(ValueError, match="KMAX"):
-        F.check_k(F.KMAX + 1)
+@pytest.mark.parametrize("k", [65, 100, 1000, 100000])
+@pytest.mark.parametrize("metric", ["L2", "IP"])
+def test_any_k_and_dead_rows_on_cpu_match_jax(rng, jax_ref, k, metric):
+    """The wrapper on CPU tensors (its plain version) at k above KMAX and
+    with dead rows, against the JAX exact scan with the same ``dead``."""
+    db = rng.standard_normal((900, 16)).astype(np.float32)
+    q = rng.standard_normal((3, 16)).astype(np.float32)
+    dead = np.zeros(900, bool)
+    dead[rng.permutation(900)[:100]] = True
+    port = _port(q, db, k, metric=metric, dead=torch.from_numpy(dead))
+    jv, ji = jax_ref[0].exact_search(q, db, k, metric=metric, dead=dead)
+    _assert_same(port, (np.asarray(jv), np.asarray(ji)))
+    assert not np.isin(port[1], np.nonzero(dead)[0]).any()
+    assert (port[1][:, :800] >= 0).all() and (port[1][:, 800:] == -1).all()
+
+
+@pytest.mark.parametrize("nq", [1, 24, 25, 1024])
+@pytest.mark.parametrize("k", [1, 64, 65, 1000])
+def test_choose_path_takes_warp_above_kmax(nq, k):
+    """The tiled block holds k <= KMAX; above it every Q takes the
+    one-query-per-warp path."""
+    tiled = nq >= F.TILED_MIN_Q and k <= F.KMAX
+    assert F.choose_path(nq, k) == (F.TILED if tiled else F.WARP)
+
+
+@pytest.mark.parametrize("nq,n_rows,k", [
+    (1, 1 << 20, 65), (1, 1 << 20, 1000), (7, 4096, 100), (30, 5000, 5000), (1, 100, 3000),
+])
+def test_long_plan_gives_each_split_rows_for_its_list(nq, n_rows, k):
+    """Above KMAX every split covers at least LONG_ROWS_PER_K x k rows
+    (or the whole database), in whole tiles, each row in exactly one."""
+    rows, splits = F.plan_splits(nq, n_rows, 8, 64, 132, min_rows=F.LONG_ROWS_PER_K * k)
+    assert rows % 64 == 0
+    assert (splits - 1) * rows < n_rows <= splits * rows
+    assert rows >= min(F.LONG_ROWS_PER_K * k, n_rows) or splits == 1
 
 
 @pytest.mark.parametrize("d", [1, 16, 384, 768, 1000, 1030, 4096])

@@ -17,8 +17,9 @@ with positive scores. The JAX package on the CPU flushes subnormals, the
 port keeps them, so the negative-subnormal (NaN) case is held to the
 port's own contract only.
 
-The ``cuda`` tests hold the kernel to its plain version on the card, bit
-for bit, and skip without one. They import no JAX:
+The ``cuda`` tests hold the kernel to its plain version on the card (the
+tensor-core block to float32 rounding, each value carrying its own float64
+score; the FMA block bit for bit) and skip without one. They import no JAX:
 ``python -m pytest tests/test_torch_kernel_probe.py -m cuda --noconftest -q``.
 """
 
@@ -31,6 +32,7 @@ import torch
 
 from rag_faiss_embedding_tpu_torch.benchmarks import kernel_probe as B
 from rag_faiss_embedding_tpu_torch.ops import kernel_probe as KP
+from rag_faiss_embedding_tpu_torch.ops.distance import NEG_INF
 from rag_faiss_embedding_tpu_torch.ops.union_scan import (
     init_packed, packing_bits, unmonotone_f32)
 
@@ -204,6 +206,44 @@ def cuda():
     return torch.device("cuda")
 
 
+def _assert_close_to_plain(inp, k, p, variant, rtol=1e-4):
+    """The card's rule for the tensor-core block against the plain version
+    (they sum the same exact bf16 products in different orders): bins that
+    read as a float NaN are the same bins with the same bits; empty bins
+    (NEG_INF) agree; values within rtol x (max ||q||^2 + max ||x||^2) +
+    (rtol + two packing quanta) x |value|; every kernel value carries its
+    own block's float64 score for its (query, slot), so block positions
+    differ only at near-ties; ``none`` holds block U - 1 everywhere."""
+    u_all, qs, codes, aux3 = inp
+    u = u_all.shape[1]
+    nbits = packing_bits(u)
+    window = codes.shape[1]
+    kn, pn = np.isnan(k.view(np.float32)), np.isnan(p.view(np.float32))
+    np.testing.assert_array_equal(kn, pn)
+    np.testing.assert_array_equal(k[kn], p[pn])
+    mask = (1 << nbits) - 1
+    t = torch.from_numpy(np.array(k))
+    kv, kb = unmonotone_f32(t & ~mask).numpy(), (t & mask).numpy()
+    t = torch.from_numpy(np.array(p))
+    pv = unmonotone_f32(t & ~mask).numpy()
+    live = ~kn & (kv > 0.5 * NEG_INF)
+    np.testing.assert_array_equal(live, ~pn & (pv > 0.5 * NEG_INF))
+    q64, x64 = qs.astype(np.float64), codes.astype(np.float64)
+    atol = rtol * float((q64 ** 2).sum(-1).max() + (x64 ** 2).sum(-1).max())
+    rel = rtol + 2.0 ** (nbits - 22)
+    assert (np.abs(kv - pv)[live] <= atol + rel * np.abs(pv)[live]).all()
+    rsq = aux3[:, 0].view(np.float32).astype(np.float64)
+    slot = np.arange(k.shape[-1]) % window
+    for c in range(u_all.shape[0]):
+        blk = u_all[c][kb[c]]                                   # (qc, cap * window)
+        own = 2 * np.einsum("qd,qsd->qs", q64[c], x64[blk, slot]) - rsq[blk, slot]
+        own = np.where(aux3[blk, 1, slot] >= 0, own, NEG_INF)
+        lc = live[c]
+        assert (np.abs(kv[c] - own)[lc] <= atol + rel * np.abs(own)[lc]).all()
+    if variant == "none":
+        assert (kb == u - 1).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", KP.VARIANTS)
 @pytest.mark.parametrize("positive", [False, True], ids=["negative", "positive"])
@@ -212,10 +252,14 @@ def cuda():
     dict(nlist=40, window=256, dim=384, qc=40, u=30, chunks=3, bb=10, cap=3),
     dict(nlist=12, window=64, dim=64, qc=17, u=1, chunks=1, bb=1, cap=1),
     dict(nlist=64, window=128, dim=256, qc=16, u=48, chunks=2, bb=16, cap=4),
+    dict(nlist=20, window=64, dim=384, qc=200, u=12, chunks=2, bb=4, cap=2),
+    dict(nlist=16, window=64, dim=72, qc=20, u=8, chunks=2, bb=4, cap=2),
 ])
 def test_kernel_matches_plain_on_card(cuda, variant, positive, shape):
-    """Kernel vs plain on the same card tensors, bit for bit: the plain
-    version sums the same exact products in the kernel's order."""
+    """Kernel vs plain on the same card tensors. The tensor-core block is
+    held to ``_assert_close_to_plain``; D = 72 (not a multiple of 16) takes
+    the FMA block, which sums in the plain version's order: bit for bit. A
+    chunk of 200 queries spans two tensor-core query tiles."""
     shape = dict(shape)
     bb, cap = shape.pop("bb"), shape.pop("cap")
     inp = _inputs(positive=positive, **shape)
@@ -223,7 +267,29 @@ def test_kernel_matches_plain_on_card(cuda, variant, positive, shape):
     k = _port(variant, inp, fn=KP.probe, device=cuda, bb=bb, cap=cap)
     torch.cuda.synchronize()
     assert KP.probe.launches == before + 1
-    np.testing.assert_array_equal(k, _port(variant, inp, device=cuda, bb=bb, cap=cap))
+    p = _port(variant, inp, device=cuda, bb=bb, cap=cap)
+    tc = KP.uses_tensor_cores(torch.cuda.current_device(), shape["dim"], cap)
+    assert tc == (shape["dim"] % 16 == 0)
+    if tc:
+        _assert_close_to_plain(inp, k, p, variant)
+    else:
+        np.testing.assert_array_equal(k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positive", [False, True], ids=["negative", "positive"])
+def test_kernel_chain_equals_temps_on_card(cuda, positive):
+    """``chain`` and ``temps`` run the same chain on the same scores: the
+    card gives them the same bits, and the same as ``temps_f32`` where every
+    score is positive."""
+    inp = _inputs(seed=3, positive=positive, nlist=40, window=256, dim=384, qc=40, u=30,
+                  chunks=3)
+    chain = _port("chain", inp, fn=KP.probe, device=cuda, bb=10, cap=3)
+    np.testing.assert_array_equal(chain, _port("temps", inp, fn=KP.probe, device=cuda, bb=10,
+                                               cap=3))
+    if positive:
+        np.testing.assert_array_equal(chain, _port("temps_f32", inp, fn=KP.probe, device=cuda,
+                                                   bb=10, cap=3))
 
 
 @pytest.mark.cuda
@@ -234,5 +300,5 @@ def test_kernel_keeps_the_subnormal_nan_on_card(cuda):
     inp = (u_all, qs, codes, aux3)
     for variant in KP.VARIANTS:
         k = _port(variant, inp, fn=KP.probe, device=cuda)
-        np.testing.assert_array_equal(k, _port(variant, inp, device=cuda))
+        _assert_close_to_plain(inp, k, _port(variant, inp, device=cuda), variant)
     assert np.isnan(k[0, 0, [7, WINDOW + 7]].view(np.float32)).all()

@@ -97,6 +97,22 @@ def test_search_matches_jax(codec, metric, compute):
         assert not dead[ids[ids >= 0]].any() and (ids < len(pts) - 37).all()
 
 
+def test_search_accepts_interpret_and_runs_the_plain_decode(codec, monkeypatch):
+    """The JAX ``interpret`` argument: the port has no interpret mode, so
+    ``interpret=True`` runs the plain decode even where ``pq_w`` asks for
+    the kernel's wrapper; the result is the JAX interpret-mode search's."""
+    pts, cb, codes, sq = codec
+    q = pts[:4] + 0.01
+    kw = dict(metric="L2", n_valid=len(pts), chunk_size=512, compute_dtype="f32")
+    want = jpq.pq_search(q, codes, cb, sq, 5, **kw)
+    calls = []
+    monkeypatch.setattr(tpq, "decode", lambda *a, **k: calls.append(1) or PD.decode(*a, **k))
+    got = tpq.pq_search(q, torch.from_numpy(codes), torch.from_numpy(cb),
+                        torch.from_numpy(sq), 5, pq_w=True, interpret=True, **kw)
+    assert not calls
+    assert_topk_close(got, want, q, np.asarray(jpq.pq_decode(cb, codes)), RTOL["f32"])
+
+
 @pytest.mark.parametrize("metric", ["L2", "IP"])
 def test_search_k_beyond_rows_pads(codec, metric):
     pts, cb, codes, sq = codec
@@ -210,7 +226,8 @@ def test_pq_index_surface_mirrors_jax():
     small.add(np.random.default_rng(5).standard_normal((4, 16)).astype(np.float32))
     _, ids = small.search(np.ones((2, 16), np.float32), 9)
     assert ids.shape == (2, 9) and (ids[:, 4:] == -1).all()
-    small.check_k(10_000)  # no k limit
+    _, ids = small.search(np.ones((1, 16), np.float32), 10_000)  # no k limit
+    assert ids.shape == (1, 10_000) and (ids[:, 4:] == -1).all()
     small.reset()  # keeps the codebooks
     assert small.ntotal == 0 and small.is_trained and small.codebooks is not None
     with pytest.raises(ValueError):
