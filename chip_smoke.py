@@ -27,13 +27,17 @@ Phases, one JSON object per line:
    answer -> save, reload in a second manager, search again. Checked
    against the same pipeline and plain scan on the CPU, and the kernel
    against its plain version at the path's own shapes (Q = 1 and Q = 16).
+   The encoder's bf16 compute mode, at full width with the same weights,
+   embeds the slice's queries, held to the float32 CPU pipeline by cosine
+   (> 0.99).
    Then one request for 100 hits, above the tiled path's KMAX: the kernel
    serves it (one launch) and it is held to the CPU index. The kernel phase
    holds K1 to its plain version at k up to 5,000 and with dead rows too.
 5. trace: the same engine, warm: request latency on the host clock, its
    stages (tokenize, embed, scan, SQLite), a ``torch.profiler`` trace of 8
    requests (device busy time per request, by kernel, and the device's idle
-   share), and the encoder's device time at 1, 16 and 32 rows.
+   share), and the encoder's device time at 1, 16 and 32 rows (bf16 beside
+   float32 under ``encoder_bf16``).
 6. ivf_kernel: 1,048,576 x 384 rows of bench.py's distribution (8,192
    Gaussian modes, rows = mode + 0.7 noise, queries = a row + 0.3 noise),
    made on the card from a seeded generator, in ``IVFFlatIndex(384,
@@ -92,6 +96,24 @@ Phases, one JSON object per line:
     rows with ``F.embedding``, from phase 8's grid), each with its achieved
     TFLOP/s and its share of the bound (bound_ms / ms).
 
+13. int8 (after phase 6, on its coarse quantizer): phase 6's 1M rows and
+    queries made again from the seed; the exact float32 top-10 from a float
+    ``FlatIndex(selector="approx")`` search, which must launch K1 once; int8
+    ``FlatIndex``es with the "exact", "approx" and "rerank" selectors: add
+    time, bytes per row, recall@10 at Q 1 and 1,024 ("rerank" >= 0.99 at Q
+    1,024, the JAX package's gate), CUDA-event search times, each held to the
+    same index moved to the CPU; ``torch._int_mm`` against the plain product
+    of the codes at the path's shapes (a query block x 524,288 rows), bit for
+    bit, both timed; a profile of the rerank index's searches; then
+    ``IVFFlatIndex(384, nlist=8192, dtype="int8", train_iters=10,
+    balance="reassign")`` with its bf16 shadow: build time, recall@10 (>=
+    RECALL_MIN) and search times at Q 1 and 1,024, held to the CPU.
+14. int8_slice: ``RAGManager(Config(index_dtype="int8"))``, flat and IVF
+    (nlist 64), over the slice's documents and requests: saved, reloaded
+    (the flat one still "rerank", the IVF one with its shadow), each
+    request's results held to the saved index searched on the CPU, and
+    ``torch._int_mm`` run on every search.
+
 Then a ``{"kernels": [...]}`` line (launch counts from each kernel's path:
 the flat scan's from the slice, union-scan variant 1's from the IVF slice,
 variant 2's from the IVF kernel phase, the PQ decode's from the PQ slice,
@@ -134,9 +156,10 @@ KP_REPLACES = "benchmarks/pallas_kernel_probe.py:57"
 # The card's published peaks (H100 SXM, dense): HBM bytes per second, and
 # operations per second of the unit an exact result needs: FP32 outside the
 # tensor cores for float32 storage, bf16 tensor cores (float32 accumulation,
-# exact products) for bf16 storage.
+# exact products) for bf16 storage, int8 tensor cores (int32 accumulation)
+# for the int8 tier's product.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # top-level packages the port must never load
 FORBIDDEN_MODULES = ("jax", "flax", "rag_faiss_embedding_tpu")
 N_DOCS = 4096
@@ -528,6 +551,8 @@ def slice_phase(torch, F, workdir: Path):
         torch, torch.from_numpy(q1), torch.from_numpy(cpu_index.vectors()),
         kv.cpu(), ki.cpu(), cv, ci, "L2", RTOL["float32"])
     trace = trace_phase(torch, run.engine, queries, batch_queries)
+    trace["encoder_bf16"] = bf16_encoder_check(torch, manager.embedder, cpu_pipe,
+                                               queries + batch_queries)
     manager.cleanup()
     run.reloaded.cleanup()
     return trace, {
@@ -1256,6 +1281,283 @@ def pq_slice_phase(torch):
     return traces, out
 
 
+# ----------------------------------------------------------------- phase 13
+INT8_SELECTORS = ("exact", "approx", "rerank")
+INT8_CPU_Q = 8  # queries of the 1M int8 indexes held to the same index on the CPU
+
+
+def int8_same_topk(torch, q, x_sq_max: float, kv, ki, pv, pi, rtol):
+    """An int8 index's result (kv, ki) against the same index on the CPU
+    (pv, pi): the same slots filled, values within rtol x (max ||q||^2 +
+    max ||x||^2) (the int32 dots are exact on both; norms and the rerank's
+    re-score are summed in other orders), ids equal except where the CPU's
+    value ties another in its list (or sits in the last slot). Returns
+    (max_abs_err, id mismatches)."""
+    kv, ki = kv.cpu(), ki.cpu()
+    qf = q.cpu().double()
+    atol = rtol * (float((qf * qf).sum(1).max()) + x_sq_max)
+    fin = torch.isfinite(pv)
+    if not torch.equal(fin, torch.isfinite(kv)) or not torch.equal(ki < 0, pi < 0):
+        raise AssertionError("the card and the CPU fill different slots")
+    diff = (kv - pv).abs()[fin]
+    err = float(diff.max()) if fin.any() else 0.0
+    if not bool((diff <= atol + rtol * pv.abs()[fin]).all()):
+        raise AssertionError(f"the card's int8 values differ from the CPU's by {err}")
+    for r, c in (ki != pi).nonzero().tolist():
+        tied = int(((pv[r] - pv[r, c]).abs() <= atol + rtol * abs(float(pv[r, c]))).sum()) > 1
+        if not tied and c != ki.shape[1] - 1:
+            raise AssertionError(f"int8 ids differ away from a tie (query {r}, slot {c})")
+    return err, int((ki != pi).sum())
+
+
+def int8_bytes_per_row(idx) -> int:
+    """Device bytes a row of an int8 flat index holds: code, scale, exact
+    norm, and the bf16 shadow row where there is one."""
+    per = idx._buf.element_size() * idx.dim + idx._scales.element_size() + idx._sq.element_size()
+    return per + (idx._shadow.element_size() * idx.dim if idx._shadow is not None else 0)
+
+
+def int_mm_case(torch, Q, q_i8, rows) -> dict:
+    """``int8_dots`` (``torch._int_mm``) against the plain product of the
+    codes on the same card tensors: equal bit for bit, both timed, with the
+    product's bound (rows, queries read once, int32 out; int8 operations at
+    the tensor-core peak)."""
+    got = Q.int8_dots(q_i8, rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got, Q.int8_dots_reference(q_i8, rows)):
+        raise AssertionError("torch._int_mm differs from the plain product of the codes")
+    nq, d = q_i8.shape
+    n = rows.shape[0]
+    bound_ms, bound_by = bound(n * d + nq * d + nq * n * 4, 2 * nq * n * d, "int8")
+    return {"Q": nq, "N": n, "D": d, "bit_equal": True,
+            "ms": cuda_ms(torch, lambda: Q.int8_dots(q_i8, rows)),
+            "plain_ms": cuda_ms(torch, lambda: Q.int8_dots_reference(q_i8, rows), reps=3),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def int8_flat_run(torch, Q, db, queries, truth, x_sq_max: float):
+    """The three selectors over bench.py's 1M rows in int8 ``FlatIndex``es:
+    add time, bytes per row, recall@10 at Q 1 (64 single queries) and Q
+    1,024 against the exact float32 top-10, CUDA-event search times; each
+    index held to the same index moved to the CPU at Q = INT8_CPU_Q. Returns
+    (entries, the rerank index, the int8 product's launches in the recall
+    searches)."""
+    from rag_faiss_embedding_tpu_torch.benchmarks.fused_proto import recall_at
+    from rag_faiss_embedding_tpu_torch.index import FlatIndex
+
+    cuda = torch.device("cuda")
+    single, qh = queries[:64], queries[:INT8_CPU_Q]
+    entries, kept, launches = [], None, 0
+    for sel in INT8_SELECTORS:
+        t0 = time.perf_counter()
+        idx = FlatIndex(IVF_DIM, dtype="int8", selector=sel, capacity=IVF_N, device=cuda)
+        idx.add(db)
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t0
+        before = Q.int8_dots.launches
+        ids1 = torch.cat([idx.search(single[i:i + 1], 10)[1] for i in range(len(single))])
+        _, ids = idx.search(queries, 10)
+        torch.cuda.synchronize()
+        launches += Q.int8_dots.launches - before
+        cpu = FlatIndex.from_state_dict(idx.state_dict(), selector=sel, device="cpu")
+        kv, ki = idx.search(qh, 10)
+        err, mism = int8_same_topk(torch, qh, x_sq_max, kv, ki, *cpu.search(qh.cpu(), 10),
+                                   RTOL["float32"])
+        entries.append({
+            "selector": sel, "add_s": add_s, "bytes_per_row": int8_bytes_per_row(idx),
+            "recall@10_q1": recall_at(ids1, truth[:len(single)]),
+            "recall@10_q1024": recall_at(ids, truth),
+            "search_ms_q1": cuda_ms(torch, lambda: idx.search(single[:1], 10)),
+            "search_ms_q1024": cuda_ms(torch, lambda: idx.search(queries, 10), reps=3, warm=1),
+            "max_abs_err_vs_cpu": err, "id_mismatch_vs_cpu": mism})
+        del cpu
+        if sel == "rerank":
+            kept = idx
+        else:
+            del idx
+            torch.cuda.empty_cache()
+    return entries, kept, launches
+
+
+def int8_ivf_run(torch, db, queries, truth, coarse):
+    """bench.py's 1M rows in ``IVFFlatIndex(384, nlist=8192, dtype="int8",
+    train_iters=10, balance="reassign")`` with its bf16 shadow, on the bf16
+    build's coarse quantizer: build time and stats, recall@10 and host-clock
+    search times at Q 1 and 1,024 at the default nprobe and 16, and the
+    index held to the same state on the CPU."""
+    from rag_faiss_embedding_tpu_torch.benchmarks.fused_proto import recall_at
+    from rag_faiss_embedding_tpu_torch.index import IVFFlatIndex
+
+    cuda = torch.device("cuda")
+    single = queries[:64]
+    t0 = time.perf_counter()
+    idx = IVFFlatIndex(IVF_DIM, nlist=IVF_NLIST, dtype="int8", train_iters=10,
+                       balance="reassign", device=cuda)
+    idx.centroids, idx.is_trained = coarse.centroids, True
+    idx.build(db)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if idx._sorted_shadow is None or idx.resolved_dispatch(IVF_Q)["backend"] != "xla":
+        raise AssertionError("the int8 IVF index must rerank on the plain chunk body")
+    routes = []
+    for nprobe in (None, 16):
+        ids1 = torch.cat([idx.search(single[i:i + 1], 10, nprobe=nprobe)[1]
+                          for i in range(len(single))])
+        _, ids = idx.search(queries, 10, nprobe=nprobe)
+        r = {"nprobe": nprobe or idx.nprobe,
+             "recall@10_q1": recall_at(ids1, truth[:len(single)]),
+             "recall@10_q1024": recall_at(ids, truth),
+             "search_ms_q1": host_ms(torch, lambda: idx.search(single[:1], 10, nprobe=nprobe), 10),
+             "search_ms_q1024": host_ms(torch, lambda: idx.search(queries, 10, nprobe=nprobe), 3)}
+        if min(r["recall@10_q1"], r["recall@10_q1024"]) < RECALL_MIN:
+            raise AssertionError(f"int8 IVF recall@10 below {RECALL_MIN}: {r}")
+        routes.append(r)
+    qh = queries[:INT8_CPU_Q]
+    cpu = IVFFlatIndex.from_state_dict(idx.state_dict(), device="cpu")
+    kv, ki = idx.search(qh, 10)
+    pv, pi = cpu.search(qh.cpu(), 10)
+    err, mism = int8_same_topk(torch, qh, float(idx._sorted_sq.max()), kv, ki, pv, pi,
+                               RTOL["float32"])
+    del cpu
+    out = {"nlist": idx.nlist, "build_s": build_s,
+           "build_stats": {k: v for k, v in idx.build_stats.items() if k != "train"},
+           "window": idx._window, "spill_rows": idx._n_spill,
+           "resolved_dispatch_q1024": idx.resolved_dispatch(IVF_Q), "routes": routes,
+           "max_abs_err_vs_cpu": err, "id_mismatch_vs_cpu": mism,
+           "search_profile_q1024": search_profile(torch, idx, queries, 2)}
+    del idx
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_phase(torch, F, coarse):
+    """The int8 tier at bench.py's IVF shape (phase 6's rows and queries,
+    made again from the seed): the exact float32 top-10 from a float
+    "approx" search (which must launch K1), the int8 flat selectors, the
+    int8 product against its plain version at the path's shapes, a profile
+    of the rerank index's searches, and the int8 IVF index."""
+    from rag_faiss_embedding_tpu_torch.index import FlatIndex
+    from rag_faiss_embedding_tpu_torch.ops import quantize as Q
+
+    cuda = torch.device("cuda")
+    db, queries = bench_rows(torch)
+    flat = FlatIndex(IVF_DIM, selector="approx", capacity=IVF_N, device=cuda)
+    flat.add(db)
+    before = F.flat_search.launches
+    _, truth = flat.search(queries, 10)
+    torch.cuda.synchronize()
+    k1_launches = F.flat_search.launches - before
+    if k1_launches != 1:
+        raise AssertionError(f"a float 'approx' search launched K1 {k1_launches} times")
+    x_sq_max = float(flat._sq[:IVF_N].max())
+    del flat
+    torch.cuda.empty_cache()
+
+    flats, rerank_idx, launches = int8_flat_run(torch, Q, db, queries, truth, x_sq_max)
+    if launches == 0:
+        raise AssertionError("the int8 flat searches never ran torch._int_mm")
+    rerank = next(e for e in flats if e["selector"] == "rerank")
+    if rerank["recall@10_q1024"] < 0.99:
+        raise AssertionError(f"int8 rerank recall@10 {rerank['recall@10_q1024']} < 0.99")
+    # the product at the path's shapes: a query block against one chunk of rows
+    chunk = rerank_idx._buf[:min(524288, rerank_idx._capacity)]
+    mm_cases = []
+    for nq in (1, IVF_Q):
+        a, b = Q._query_blocks(nq, chunk.shape[0])[0]
+        q_i8, _ = Q.quantize_rows(queries[a:b])
+        mm_cases.append(int_mm_case(torch, Q, q_i8, chunk))
+    profiles = {f"Q={q.shape[0]}": search_profile(torch, rerank_idx, q, reps)
+                for q, reps in ((queries[:1], 8), (queries, 2))}
+    del rerank_idx, chunk
+    torch.cuda.empty_cache()
+    ivf = int8_ivf_run(torch, db, queries, truth, coarse)
+    return {"phase": "int8", "N": IVF_N, "D": IVF_DIM, "k": 10,
+            "k1_launches_approx_f32": k1_launches, "int8_dots_launches": launches,
+            "flat": flats, "int_mm_cases": mm_cases, "flat_rerank_profile": profiles,
+            "ivf": ivf}
+
+
+def int8_slice_phase(torch):
+    """``RAGManager(Config(index_dtype="int8"))``, flat and IVF (nlist 64),
+    over the slice's documents and requests, each in a fresh directory:
+    ingest, requests, save, reload (the flat one as "rerank", the IVF one
+    with its shadow), and the results held to the saved index searched on
+    the CPU. The int8 product must run on each path."""
+    from rag_faiss_embedding_tpu_torch.core.config import Config
+    from rag_faiss_embedding_tpu_torch.index import FlatIndex, IVFFlatIndex, VectorStore
+    from rag_faiss_embedding_tpu_torch.ops import quantize as Q
+
+    docs = corpus_documents(N_DOCS, SEED)
+    picks, queries, batch_queries = slice_requests(docs)
+    out = {"phase": "int8_slice"}
+    for kind, cls in (("flat", FlatIndex), ("ivf", IVFFlatIndex)):
+        with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir:
+            cfg = Config(base_dir=Path(workdir), model_name="chip-smoke-random-init",
+                         index_kind=kind, ivf_nlist=64, index_dtype="int8")
+            Q.int8_dots.launches = 0  # count the main path's products only
+            run = drive_slice(torch, cfg, docs, queries, batch_queries)
+            launches = Q.int8_dots.launches
+            index, again = run.manager.vector_store.index, run.reloaded.vector_store.index
+            if not (isinstance(index, cls) and isinstance(again, cls) and index.quantized
+                    and again.quantized):
+                raise AssertionError(f"the int8 {kind} manager did not build its index")
+            reranks = ((index.selector, again.selector) == ("rerank", "rerank") if kind == "flat"
+                       else index._sorted_shadow is not None and again._sorted_shadow is not None)
+            if not reranks:
+                raise AssertionError(f"the int8 {kind} index lost its rerank on reload")
+            self_hits = check_slice(run, docs, picks, 0)
+            if launches < run.searches:
+                raise AssertionError(f"torch._int_mm ran {launches} times for "
+                                     f"{run.searches} searches")
+            cpu = VectorStore(index.dim, index_path=cfg.index_path, device="cpu").index
+            if kind == "flat" and cpu.selector != "rerank":
+                raise AssertionError("the saved int8 flat index loads on the CPU without "
+                                     "its rerank")
+            x_sq = float((index._sq if kind == "flat" else index._sorted_sq).max())
+            held = []
+            for texts in (queries, batch_queries):
+                emb = run.manager.embedder.generate_embeddings(texts)
+                held.append(int8_same_topk(torch, torch.from_numpy(emb), x_sq,
+                                           *index.search(emb, 5), *cpu.search(emb, 5),
+                                           RTOL["float32"]))
+            run.manager.cleanup()
+            run.reloaded.cleanup()
+        out[kind] = {**slice_summary(run, f"int8_{kind}", self_hits, held[0][1], held[1][1]),
+                     "int8_dots_launches": launches, "selector": cfg.search_selector,
+                     "max_abs_err_vs_cpu": max(held[0][0], held[1][0])}
+    return out
+
+
+def bf16_encoder_check(torch, embedder, cpu_pipe, texts) -> dict:
+    """The encoder's bf16 compute mode at full width on the card, with the
+    slice's weights: its embeddings of ``texts`` against the float32 CPU
+    pipeline's by cosine (> 0.99, the JAX package's bar), and its device
+    time at 1 / 16 / 32 rows beside the float32 encoder's."""
+    import numpy as np
+
+    from rag_faiss_embedding_tpu_torch.models import EmbeddingPipeline
+    from rag_faiss_embedding_tpu_torch.models import convert
+
+    cfg = dataclasses.replace(embedder.cfg, dtype="bfloat16")
+    pipe = EmbeddingPipeline(
+        params=convert.to_flax_params(embedder.model.state_dict(), embedder.cfg), cfg=cfg,
+        tokenizer=embedder.tokenizer, max_seq_length=embedder.max_seq_length,
+        device=torch.device("cuda"))
+    got, want = pipe.generate_embeddings(texts), cpu_pipe.generate_embeddings(texts)
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    if not np.isfinite(got).all() or float(cos.min()) <= 0.99:
+        raise AssertionError(f"bf16 encoder cosine to the f32 CPU pipeline {cos.min()}")
+    ids, mask = embedder.tokenizer.encode_batch(texts[:32], embedder.max_seq_length)
+    ids = np.pad(ids, ((0, 32 - len(ids)), (0, 0)), constant_values=embedder.tokenizer.pad_id)
+    mask = np.pad(mask, ((0, 32 - len(mask)), (0, 0)))
+    return {"texts": len(texts), "cosine_min_vs_f32_cpu": float(cos.min()),
+            "seq_bucket": int(ids.shape[1]),
+            "bf16_ms_by_rows": {r: cuda_ms(torch, lambda: pipe._forward(ids[:r], mask[:r]))
+                                for r in (1, 16, 32)},
+            "f32_ms_by_rows": {r: cuda_ms(torch, lambda: embedder._forward(ids[:r], mask[:r]))
+                               for r in (1, 16, 32)}}
+
+
 # ----------------------------------------------------------------- phase 10
 def bound(bytes_moved: float, flops: float, dtype: str):
     """The least time the card could take for the work, in ms, and what
@@ -1630,6 +1932,8 @@ def main() -> int:
     emit(fp)
     ivf, union_err = ivf_kernel_phase(torch, *built)
     emit(ivf)
+    i8 = int8_phase(torch, F, built[0])  # on the bf16 build's coarse quantizer
+    emit(i8)
     del built
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir:
@@ -1642,6 +1946,7 @@ def main() -> int:
     emit(pq_sl)
     for trace in pq_traces:
         emit(trace)
+    emit(int8_slice_phase(torch))
     kp = kernel_probe_phase(torch)
     emit(kp)
     emit(bounds_phase(cases, ivf, pq))

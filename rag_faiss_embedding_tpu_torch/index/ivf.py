@@ -1,8 +1,8 @@
 """IVF-Flat index: k-means coarse quantizer + inverted-list scan.
 
 Counterpart of ``rag_faiss_embedding_tpu/index/ivf.py`` (the
-``faiss.IndexIVFFlat`` analog) for float32 / bfloat16 storage, with the same
-layout, arguments and file format:
+``faiss.IndexIVFFlat`` analog) for float32 / bfloat16 / int8 storage, with
+the same layout, arguments and file format:
 
 - vectors live on ``device`` in a BLOCK-PADDED buffer: every list owns
   ``window`` slots, plus one all-dead sentinel block at list ``nlist``; dead
@@ -12,6 +12,11 @@ layout, arguments and file format:
   ``FlatIndex``); ``balance="reassign"`` runs the capacity-capped
   multi-choice assignment, then rescues rows that exhausted their choices;
 - streaming adds land in the pending tier, merged by ``rebuild()``;
+- int8 storage (the SQ8 tier): block-padded codes with per-slot scales and
+  exact float32 norms, a bf16 centroid copy for the coarse scan, an int8
+  pending tier, and with ``rerank`` (the default for int8) a slot-laid bf16
+  shadow whose rows re-score the top ``rerank_depth`` candidates exactly;
+  int8 searches take the plain chunk body (``torch._int_mm`` on the card);
 - search is the fused batched path of ``ops/ivf_scan.py``: on a CUDA index
   ``backend="auto"`` launches the union-scan kernel (``csrc/union_scan.cu``)
   or raises; a filter takes the plain chunk body, as in JAX;
@@ -27,8 +32,7 @@ layout, arguments and file format:
 
 ``remove_ids`` writes -1 into the block ids in place on the device.
 
-Not ported yet: dense int8 storage and ``rerank`` without ``pq_m`` (the
-int8 tier), and ``build_chunked`` (the out-of-memory IVF-PQ build). The
+Not ported yet: ``build_chunked`` (the out-of-memory IVF-PQ build). The
 per-query windowed search (``use_fused=False``) is not ported:
 ``probe_scan_math`` is kept only as a test oracle.
 """
@@ -54,7 +58,6 @@ from .flat import _DTYPES, FlatIndex, _dtype_name, _round_up
 
 logger = get_logger(__name__)
 
-_INT8_TIER = "the int8 tier"
 # the npz dtype tag of each refine shadow saved as raw values (bf16 saves as
 # uint16 bits)
 _SHADOW_DTYPES = {np.dtype(np.int8): torch.int8, np.dtype(np.float32): torch.float32}
@@ -176,11 +179,9 @@ class IVFFlatIndex:
                 raise ValueError("pq_compute must be 'bf16' or 'f32'")
             self.dtype_name, self.dtype = "uint8", torch.uint8  # list storage = codes
         else:
-            if rerank:
-                raise NotImplementedError(
-                    f"the dense IVF shadow rerank is not ported yet ({_INT8_TIER})")
-            self.dtype_name = _dtype_name(dtype)  # int8 raises, naming its tier
+            self.dtype_name = _dtype_name(dtype)
             self.dtype = _DTYPES[self.dtype_name]
+        self.quantized = self.dtype == torch.int8
         self.device = torch.device(device) if device is not None else default_device()
         self.train_iters = train_iters
         self.seed = seed
@@ -190,7 +191,8 @@ class IVFFlatIndex:
         self._cent_store: Optional[torch.Tensor] = None  # storage dtype
         self._cent_sq: Optional[torch.Tensor] = None
         # block-padded storage, ((nlist+1)*window, ...), sentinel block last
-        self._sorted_vecs: Optional[torch.Tensor] = None
+        self._sorted_vecs: Optional[torch.Tensor] = None  # codes if quantized
+        self._sorted_scales: Optional[torch.Tensor] = None
         self._sorted_sq: Optional[torch.Tensor] = None
         self._sorted_ids: Optional[torch.Tensor] = None
         self._offsets: Optional[torch.Tensor] = None
@@ -217,15 +219,19 @@ class IVFFlatIndex:
         self.union_cap = union_cap
         self.balance_weight = float(balance_weight)
         self._assign_bias: Optional[torch.Tensor] = None
-        # PQ refine (FAISS IndexRefine analog): with pq_m, rerank keeps a
-        # shadow of the full rows and re-scores the ADC scan's top
-        # rerank_depth candidates (a deeper default pool: the ADC order is
-        # what the refine repairs)
-        self.rerank = bool(rerank)
+        # int8: rerank (the default) keeps a slot-laid bf16 shadow and
+        # re-scores the top rerank_depth candidates (the quantized cross term
+        # caps recall@10 below the 0.99 gate otherwise); float storage keeps
+        # no shadow. PQ refine (FAISS IndexRefine analog): with pq_m, rerank
+        # keeps a compact shadow of the full rows and re-scores the ADC
+        # scan's top rerank_depth candidates (a deeper default pool: the ADC
+        # order is what the refine repairs)
+        self.rerank = self.quantized if rerank is None else bool(rerank)
         self.refine_dtype = refine_dtype
         self.rerank_depth = int(rerank_depth if rerank_depth is not None
                                 else (64 if (self.pq_m and self.rerank) else 16))
-        # the PQ refine shadow: COMPACT (n_rows, D) rows in any order, with
+        # the shadow: int8 storage's is slot-laid bf16 ((nlist+1)*window, D);
+        # the PQ refine shadow is COMPACT (n_rows, D) rows in any order, with
         # the (n_slots,) slot -> row map _shadow_pos (-1 = dead slot); a
         # block-padded D-wide shadow would cost slots / rows x its size
         self._sorted_shadow: Optional[torch.Tensor] = None
@@ -380,10 +386,11 @@ class IVFFlatIndex:
 
     def _cent_dtype(self) -> torch.dtype:
         """The coarse-scan centroid copy's dtype: the compute dtype under PQ,
-        else the storage dtype."""
+        bf16 for int8 storage (the coarse ranking only picks lists), else the
+        storage dtype."""
         if self.pq_m:
             return torch.bfloat16 if self.pq_compute == "bf16" else torch.float32
-        return self.dtype
+        return torch.bfloat16 if self.quantized else self.dtype
 
     def _rescue_exhausted(self, vecs_f32, spill_rows: np.ndarray,
                           assign_np: np.ndarray, cap: int) -> np.ndarray:
@@ -487,6 +494,7 @@ class IVFFlatIndex:
         exact_sq = dist_ops.sqnorms(sorted_f32)  # exact, before any quantization
         self._sorted_shadow = self._sorted_shadow_scales = None
         self._sorted_shadow_sq = self._shadow_pos = None
+        sorted_scales = None
         encode_s = 0.0
         if self.pq_m:
             self._sync()
@@ -501,12 +509,19 @@ class IVFFlatIndex:
             self._sync()
             encode_s = time.perf_counter() - t_enc
             bstats["encode_s"] = encode_s
+        elif self.quantized:
+            (sorted_codes, sorted_scales), sorted_sq = quantize_rows(sorted_f32), exact_sq
         else:
             sorted_codes, sorted_sq = sorted_f32.to(self.dtype), exact_sq
         zrow = sorted_codes.new_zeros((1, sorted_codes.shape[1]))
         self._sorted_vecs = torch.cat([sorted_codes, zrow])[src]
         self._sorted_sq = torch.cat([sorted_sq, sorted_sq.new_zeros(1)])[src]
         self._sorted_ids = torch.cat([sorted_ids, sorted_ids.new_full((1,), -1)])[src]
+        self._sorted_scales = (torch.cat([sorted_scales, sorted_scales.new_zeros(1)])[src]
+                               if sorted_scales is not None else None)
+        if self.quantized and self.rerank:  # slot-laid: gathered like the codes
+            self._sorted_shadow = torch.cat(
+                [sorted_f32.to(torch.bfloat16), zrow.to(torch.bfloat16)])[src]
         self._sync()
         bstats["scatter_s"] = time.perf_counter() - t0 - encode_s
 
@@ -576,14 +591,15 @@ class IVFFlatIndex:
 
     # -------------------------------------------------------------- search
     def _pending_dev(self):
-        """Spill / streaming tier as fused-search inputs: (codes, None,
-        sqnorms, global row ids padded to capacity with -1)."""
+        """Spill / streaming tier as fused-search inputs: (codes, scales |
+        None, sqnorms, global row ids padded to capacity with -1)."""
         if self._pending_rowids_dev is None or (
                 self._pending_rowids_dev.shape[0] != self._pending._capacity):
             ids = np.full((self._pending._capacity,), -1, np.int32)
             ids[:len(self._pending_rowids)] = self._pending_rowids
             self._pending_rowids_dev = torch.as_tensor(ids, device=self.device)
-        return (self._pending._buf, None, self._pending._sq, self._pending_rowids_dev)
+        return (self._pending._buf, self._pending._scales, self._pending._sq,
+                self._pending_rowids_dev)
 
     def search(self, queries, k: int, nprobe: Optional[int] = None,
                filter_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -626,8 +642,9 @@ class IVFFlatIndex:
             # its decode kernel inside the plain chunk body
             backend = "xla"
         return fused_ivf_search(
-            q, self._cent_store, self._cent_sq, self._sorted_vecs, None,
-            self._sorted_sq, self._sorted_ids, spill, None, filt,
+            q, self._cent_store, self._cent_sq, self._sorted_vecs, self._sorted_scales,
+            self._sorted_sq, self._sorted_ids, spill,
+            None if self.pq_m else self._sorted_shadow, filt,
             self._pq_cb_compute() if self.pq_m else None,
             bool(self.pq_m) and self.backend != "xla", self._pq_shadow(), self.pq_rot,
             k=k, nprobe=nprobe, window=self._window, metric=self.metric,
@@ -653,8 +670,9 @@ class IVFFlatIndex:
             backend = "xla"
         out = resolve_fused_dispatch(
             nq=nq, dim=self.dim, nlist=self.nlist, window=self._window,
-            code_bytes=self._sorted_vecs.element_size(), quantized=False,
-            has_shadow=False, has_pq=bool(self.pq_m), has_filter=False,
+            code_bytes=self._sorted_vecs.element_size(), quantized=self.quantized,
+            has_shadow=self._sorted_shadow is not None and not self.pq_m,
+            has_pq=bool(self.pq_m), has_filter=False,
             nprobe=min(self.nprobe, self.nlist), union_cap=self.union_cap,
             qc=self.query_chunk, backend=backend,
             platform=self._sorted_vecs.device.type)
@@ -675,6 +693,7 @@ class IVFFlatIndex:
         self.is_trained = False
         self.centroids = self._cent_store = self._cent_sq = None
         self._sorted_vecs = self._sorted_sq = self._sorted_ids = None
+        self._sorted_scales = None
         self._sorted_shadow = self._sorted_shadow_scales = None
         self._sorted_shadow_sq = self._shadow_pos = None
         self._offsets = self._lengths = None
@@ -689,9 +708,11 @@ class IVFFlatIndex:
         return self._sorted_ids.cpu().numpy() >= 0
 
     def _built_rows(self, pos: torch.Tensor) -> torch.Tensor:
-        """float32 rows of block slots ``pos``: the stored rows, or under PQ
-        the refine shadow (the better copy) or else centroid + decoded
-        residual (un-rotated from the OPQ basis)."""
+        """float32 rows of block slots ``pos``: the stored rows (int8:
+        dequantized), or under PQ the refine shadow (the better copy) or else
+        centroid + decoded residual (un-rotated from the OPQ basis)."""
+        if self.quantized:
+            return dequantize(self._sorted_vecs[pos], self._sorted_scales[pos])
         if not self.pq_m:
             return self._sorted_vecs[pos].float()
         if self._sorted_shadow is not None:
@@ -706,8 +727,8 @@ class IVFFlatIndex:
 
     def vectors(self, return_ids: bool = False):
         """Live vectors in original insertion order (float32 host copies;
-        tombstones excluded; PQ rows reconstructed), and with ``return_ids``
-        their ids."""
+        tombstones excluded; int8 rows dequantized, PQ rows reconstructed),
+        and with ``return_ids`` their ids."""
         all_vecs, all_ids = [], []
         if self._n_built:
             live = self._live_mask()
@@ -732,8 +753,9 @@ class IVFFlatIndex:
     def state_dict(self) -> dict:
         """Exact state in the "padded_v3" format: live block rows in list
         order + per-list lengths (reload re-scatters them), the pending tier's
-        live rows, the centroids; under PQ the codebooks, the OPQ rotation
-        and the refine shadow's rows in the same block order."""
+        live rows, the centroids; int8 codes with their scales, and the
+        shadow's rows in the same block order; under PQ the codebooks, the
+        OPQ rotation and the refine shadow."""
         state = {
             "kind": "ivf",
             "format": "padded_v3",
@@ -775,8 +797,12 @@ class IVFFlatIndex:
                 "lengths": live[: self.nlist * self._window]
                 .reshape(self.nlist, self._window).sum(1).astype(np.int64),
             })
+            if self.quantized:
+                state["scales"] = self._sorted_scales[pos].cpu().numpy()
             if self._sorted_shadow is not None:
-                sh = self._shadow_pos[pos].long()
+                # compact shadows (PQ) gather through the slot map, slot-laid
+                # ones (int8) by slot
+                sh = self._shadow_pos[pos].long() if self._shadow_pos is not None else pos
                 state["shadow"] = codec.to_host(self._sorted_shadow[sh])
                 if self._sorted_shadow_scales is not None:
                     state["shadow_scales"] = self._sorted_shadow_scales[sh].cpu().numpy()
@@ -792,12 +818,15 @@ class IVFFlatIndex:
                 "pending_sq": p._sq[psel].cpu().numpy(),
                 "pending_rowids": self._pending_rowids[plive],
             })
+            if self.quantized:
+                state["pending_scales"] = p._scales[psel].cpu().numpy()
         return state
 
-    def _install_blocks(self, codes, sq, ids, lengths_np: np.ndarray, shadow=None,
+    def _install_blocks(self, codes, sq, ids, scales, lengths_np: np.ndarray, shadow=None,
                         shadow_scales=None, shadow_sq=None) -> None:
         """Scatter compact per-list rows into the block-padded layout; a PQ
-        refine shadow stays compact, with its slot -> row map."""
+        refine shadow stays compact, with its slot -> row map, an int8
+        storage's shadow is scattered with the codes."""
         nlist, window, dev = self.nlist, self._window, self.device
         n_live = int(codes.shape[0])
         listid = np.repeat(np.arange(nlist), lengths_np)
@@ -809,7 +838,12 @@ class IVFFlatIndex:
         self._sorted_vecs = torch.cat([codes, codes.new_zeros((1, codes.shape[1]))])[src]
         self._sorted_sq = torch.cat([sq, sq.new_zeros(1)])[src]
         self._sorted_ids = torch.cat([ids, ids.new_full((1,), -1)])[src]
-        if shadow is not None:
+        self._sorted_scales = (torch.cat([scales.to(dev), scales.new_zeros(1, device=dev)])[src]
+                               if scales is not None else None)
+        if shadow is not None and not self.pq_m:
+            shadow = shadow.to(dev)
+            self._sorted_shadow = torch.cat([shadow, shadow.new_zeros((1, self.dim))])[src]
+        elif shadow is not None:
             self._sorted_shadow = shadow.to(dev)
             self._sorted_shadow_scales = (shadow_scales.to(dev)
                                           if shadow_scales is not None else None)
@@ -832,9 +866,6 @@ class IVFFlatIndex:
             pq_kwargs = {"pq_m": int(item(state["pq_m"])),
                          "pq_ksub": int(item(state["pq_ksub"])),
                          "pq_compute": str(item(state["pq_compute"]))}
-        elif "shadow" in state:
-            raise NotImplementedError(
-                f"dense IVF shadow-rerank indexes are not ported yet ({_INT8_TIER})")
         # under PQ the list dtype is re-derived (uint8 codes)
         dtype = "bfloat16" if pq_kwargs else str(item(state["dtype"]))
         idx = cls(dim=int(item(state["dim"])), nlist=int(item(state["nlist"])),
@@ -875,6 +906,8 @@ class IVFFlatIndex:
             codes = codec.from_host(np.asarray(state["codes"]), idx.dtype)
             sq = torch.tensor(np.asarray(state["sqnorms"]), dtype=torch.float32)
             ids = torch.tensor(np.asarray(state["sorted_ids"]), dtype=torch.int32)
+            scales = (torch.tensor(np.asarray(state["scales"]), dtype=torch.float32)
+                      if idx.quantized else None)
             shadow = shadow_scales = shadow_sq = None
             if "shadow" in state:
                 sh_np = np.asarray(state["shadow"])
@@ -898,15 +931,19 @@ class IVFFlatIndex:
                     np.arange(off, off + ln) for off, ln in zip(offsets_np, lengths_np)
                 ]).astype(np.int64) if lengths_np.sum() else np.zeros(0, np.int64))
                 codes, sq, ids = codes[sel], sq[sel], ids[sel]
-                shadow, shadow_scales, shadow_sq = (
+                scales, shadow, shadow_scales, shadow_sq = (
                     t[sel] if t is not None else None
-                    for t in (shadow, shadow_scales, shadow_sq))
-            idx._install_blocks(codes, sq, ids, lengths_np, shadow=shadow,
+                    for t in (scales, shadow, shadow_scales, shadow_sq))
+            idx._install_blocks(codes, sq, ids, scales, lengths_np, shadow=shadow,
                                 shadow_scales=shadow_scales, shadow_sq=shadow_sq)
         if "pending_codes" in state:
-            idx._pending = FlatIndex.from_state_dict(
-                {"dim": idx.dim, "metric": idx.metric, "dtype": idx._pending.dtype_name,
-                 "vectors": np.asarray(state["pending_codes"])}, device=idx.device)
+            p_state = {"dim": idx.dim, "metric": idx.metric,
+                       "dtype": idx._pending.dtype_name,
+                       "vectors": np.asarray(state["pending_codes"])}
+            if idx.quantized:  # codes, scales and exact norms, as saved
+                p_state.update(scales=np.asarray(state["pending_scales"]),
+                               sqnorms=np.asarray(state["pending_sq"]))
+            idx._pending = FlatIndex.from_state_dict(p_state, device=idx.device)
             idx._pending_rowids = np.asarray(state["pending_rowids"], np.int32)
             idx._pending_rowids_dev = None
         return idx

@@ -9,12 +9,15 @@ ids without the sidecar, ``remove_doc_ids`` and ``allowed_doc_ids``
 filtering. The files are the JAX package's format: each package loads the
 other's.
 
-The "flat", "ivf" (dense and IVF-PQ) and "pq" index kinds are ported. A
-"sharded_flat" file (the JAX ``ShardedFlatIndex``) holds ``FlatIndex``'s
-payload, so it loads as a one-card ``FlatIndex``, tombstones included, as
-the JAX store loads it over one device; a re-save from the port writes
-kind "flat", which the JAX store loads too. "sharded_ivf" comes with the
-multi-GPU tier. FAISS binary import comes with ``faiss_import``.
+The "flat" (float32, bfloat16, int8), "ivf" (dense and IVF-PQ) and "pq"
+index kinds are ported. An int8 flat file with a bf16 shadow reloads with
+selector "rerank" and its shadow (the JAX store reloads it as "exact" and
+drops the shadow). A "sharded_flat" file (the JAX ``ShardedFlatIndex``)
+holds ``FlatIndex``'s payload, so it loads as a one-card ``FlatIndex``,
+tombstones included, as the JAX store loads it over one device; a re-save
+from the port writes kind "flat", which the JAX store loads too.
+"sharded_ivf" comes with the multi-GPU tier. ``import_faiss`` reads a
+reference FAISS flat binary (``index/faiss_import``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from ..core.logging import get_logger
 
+from .faiss_import import import_faiss_index
 from .flat import FlatIndex
 from .ivf import IVFFlatIndex
 from .pq import PQIndex
@@ -82,6 +86,21 @@ class VectorStore:
         self.doc_ids.extend(int(i) for i in ids)
         self.index.add(vectors)
         logger.debug("added %d vectors (ntotal=%d)", len(ids), self.ntotal)
+
+    def import_faiss(self, path: str | Path,
+                     mapping_path: Optional[str | Path] = None) -> int:
+        """Migrate a reference ``faiss.write_index`` flat binary into this
+        store (one-way; see :mod:`.faiss_import`). The file's metric and
+        width must match the store's. Returns the number of vectors
+        imported."""
+        vecs, ids, metric = import_faiss_index(path, mapping_path)
+        if metric != self.metric:
+            raise ValueError(f"FAISS file is {metric} but this store is {self.metric}")
+        if vecs.shape[1] != self.dimension:
+            raise ValueError(f"FAISS file is {vecs.shape[1]}-d but this store is "
+                             f"{self.dimension}-d")
+        self.add_vectors(vecs, ids)
+        return len(ids)
 
     def search(
         self,

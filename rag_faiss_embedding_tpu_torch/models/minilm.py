@@ -11,7 +11,13 @@ encoder), the same network: a BERT post-LN encoder at MiniLM-L6 scale
 
 Module names follow the Flax parameter tree (``models/convert.py`` moves
 weights across). This is the inference encoder: no dropout, no gradients.
-Compute is float32; the Flax model's bfloat16 compute mode is not ported.
+
+``MiniLMConfig(dtype="bfloat16")`` is the Flax model's bf16 compute mode,
+step by step: parameters stay float32 and are cast at use; the three
+embedding lookups are cast to bf16 and summed in bf16; every LayerNorm runs
+in float32 and is cast back; each Dense is a bf16 product (float32
+accumulation) plus its bf16 bias; the attention logits are float32, the
+probabilities cast to bf16; the pooled output comes back float32.
 """
 
 from __future__ import annotations
@@ -35,12 +41,34 @@ class MiniLMConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     dropout_rate: float = 0.1  # kept for config parity; inference only
-    dtype: str = "float32"  # compute dtype; only "float32" is ported
+    dtype: str = "float32"  # compute dtype: "float32" or "bfloat16"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+
+def _dense(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``m`` in the compute dtype of ``x``: in bf16 the product (rounded to
+    bf16) and then the bias, as Flax's ``Dense(dtype=bfloat16)`` adds them."""
+    if x.dtype == torch.float32:
+        return m(x)
+    return F.linear(x, m.weight.to(x.dtype)) + m.bias.to(x.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU. In bf16 it is JAX's own form, op by op, each op
+    rounded to bf16 (``0.5 * x * erfc(-x * sqrt(1/2))``), which gives the
+    Flax encoder's bits where one fused GELU rounds once."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="none")
+    return 0.5 * x * torch.erfc(-x * x.new_tensor(0.5 ** 0.5))
 
 
 class Embeddings(nn.Module):
     def __init__(self, cfg: MiniLMConfig):
         super().__init__()
+        self.compute_dtype = cfg.compute_dtype
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = nn.Embedding(
             cfg.max_position_embeddings, cfg.hidden_size)
@@ -50,11 +78,12 @@ class Embeddings(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        x = (self.word_embeddings(input_ids)
-             + self.position_embeddings(pos)[None]
-             + self.token_type_embeddings(token_type_ids))
-        return self.layer_norm(x)
+        x = (self.word_embeddings(input_ids).to(cd)
+             + self.position_embeddings(pos)[None].to(cd)
+             + self.token_type_embeddings(token_type_ids).to(cd))
+        return self.layer_norm(x.float()).to(cd)
 
 
 class SelfAttention(nn.Module):
@@ -71,11 +100,12 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
         b, t, h = x.shape
         split = lambda y: y.view(b, t, self.num_heads, self.head_dim)
-        q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
-        logits = torch.einsum("bthd,bshd->bhts", q, k) * self.head_dim ** -0.5
-        probs = torch.softmax(logits + attn_bias, dim=-1)
+        q, k, v = (split(_dense(m, x)) for m in (self.query, self.key, self.value))
+        # float32 logits and softmax in either compute dtype
+        logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * self.head_dim ** -0.5
+        probs = torch.softmax(logits + attn_bias, dim=-1).to(x.dtype)
         ctx = torch.einsum("bhts,bshd->bthd", probs, v)
-        return self.output(ctx.reshape(b, t, h))
+        return _dense(self.output, ctx.reshape(b, t, h))
 
 
 class Layer(nn.Module):
@@ -89,9 +119,10 @@ class Layer(nn.Module):
         self.ffn_norm = nn.LayerNorm(h, eps=eps)
 
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
-        x = self.attention_norm(x + self.attention(x, attn_bias))
-        hdn = F.gelu(self.intermediate(x), approximate="none")
-        return self.ffn_norm(x + self.ffn_output(hdn))
+        cd = x.dtype  # LayerNorms in float32, cast back
+        x = self.attention_norm((x + self.attention(x, attn_bias)).float()).to(cd)
+        hdn = _gelu(_dense(self.intermediate, x))
+        return self.ffn_norm((x + _dense(self.ffn_output, hdn)).float()).to(cd)
 
 
 class MiniLMEncoder(nn.Module):
@@ -99,9 +130,6 @@ class MiniLMEncoder(nn.Module):
 
     def __init__(self, cfg: MiniLMConfig = MiniLMConfig()):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"compute dtype {cfg.dtype!r} is not ported; use 'float32'")
         self.cfg = cfg
         self.embeddings = Embeddings(cfg)
         self.layers = nn.ModuleList(Layer(cfg) for _ in range(cfg.num_layers))
@@ -123,6 +151,7 @@ class MiniLMEncoder(nn.Module):
         ).to(torch.float32)
         for layer in self.layers:
             x = layer(x, attn_bias)
+        x = x.float()
         if pooling == "cls":
             # reference uses CLS-token pooling (vectorization.py:44)
             return x[:, 0]

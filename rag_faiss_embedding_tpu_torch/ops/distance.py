@@ -102,15 +102,16 @@ def merge_topk(vals_a: torch.Tensor, idx_a: torch.Tensor,
     return best, torch.gather(idx, 1, pos.long())
 
 
-def finish_topk(best_v: torch.Tensor, best_i: torch.Tensor, q: torch.Tensor,
+def finish_topk(best_v: torch.Tensor, best_i: torch.Tensor, q_sq: torch.Tensor,
                 k: int, metric: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Selected scores -> public values: slots still at NEG_INF become
-    -1 / inf (-inf for IP), L2 adds ``||q||^2`` back, and k > N pads."""
+    -1 / inf (-inf for IP), L2 adds the query norms ``q_sq`` back, and
+    k > N pads."""
     nq, k_eff = best_v.shape
     valid = best_v > NEG_INF
     best_i = torch.where(valid, best_i, torch.full_like(best_i, -1))
     if metric == "L2":
-        dist = (sqnorms(q)[:, None] - best_v).clamp_min(0.0)
+        dist = (q_sq[:, None] - best_v).clamp_min(0.0)
         values = torch.where(valid, dist, torch.full_like(dist, float("inf")))
     else:
         values = torch.where(valid, best_v,
@@ -133,11 +134,11 @@ def exact_search(
     db_sq=None,
     n_valid: Optional[int] = None,
     chunk_size: int = 524288,
+    selector: str = "exact",
+    recall_target: float = 0.99,
     dead=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k scan over ``db`` for a batch of queries. The JAX
-    function's ``selector`` / ``recall_target`` are not taken: only exact
-    selection is ported, and ``FlatIndex`` rejects the other selectors.
+    """Exact top-k scan over ``db`` for a batch of queries.
 
     Args:
       q: (Q, D) queries; db: (N, D) database (rows past ``n_valid`` are
@@ -147,6 +148,9 @@ def exact_search(
       db_sq: optional precomputed float32 row squared norms, (N,).
       n_valid: number of real rows; rows >= n_valid are masked out.
       chunk_size: database rows per scan step.
+      selector: "exact" or "approx"; both select exactly (JAX's
+        ``lax.approx_max_k`` is an exact top-k off the TPU), so
+        ``recall_target`` is taken for the JAX signature only.
       dead: optional (N,) bool tombstones; True rows are never returned.
 
     Returns:
@@ -155,6 +159,8 @@ def exact_search(
     """
     if metric not in ("L2", "IP"):
         raise ValueError(f"metric must be 'L2' or 'IP', got {metric!r}")
+    if selector not in ("exact", "approx"):
+        raise ValueError(f"selector must be 'exact' or 'approx', got {selector!r}")
     db = as_tensor(db)
     q = as_tensor(q, device=db.device)
     n = db.shape[0]
@@ -183,4 +189,4 @@ def exact_search(
         scores = scores.masked_fill(~live[None, :], NEG_INF)
         cv, cp = small_topk(scores, min(k_eff, stop - start))
         best_v, best_i = merge_topk(best_v, best_i, cv, cp + start, k_eff)
-    return finish_topk(best_v, best_i, q, k, metric)
+    return finish_topk(best_v, best_i, sqnorms(q), k, metric)

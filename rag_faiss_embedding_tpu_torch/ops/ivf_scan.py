@@ -1,7 +1,7 @@
 """Fused batched IVF search: coarse stage, chunk unions, union scan, spill.
 
 Counterpart of ``rag_faiss_embedding_tpu/ops/ivf_scan.py`` for dense float32
-/ bfloat16 storage and PQ codes, with the same steps and dispatch:
+/ bfloat16 / int8 storage and PQ codes, with the same steps and dispatch:
 
 1. coarse: one (Nq, nlist) float32 product for the whole batch (queries cast
    to the centroids' dtype first, as JAX does);
@@ -14,23 +14,26 @@ Counterpart of ``rag_faiss_embedding_tpu/ops/ivf_scan.py`` for dense float32
 4. the chunk stage: ``backend="pallas"`` runs the union-scan kernel
    (``ops/union_scan.py``; its plain version on a CPU index) and decodes its
    packed candidates; ``backend="xla"`` is the plain chunk body
-   (``_chunk_body``), a Python loop over chunks where JAX uses scan/vmap;
+   (``_chunk_body``), a Python loop over chunks where JAX uses scan/vmap:
+   int8 storage scores with the int8 product (``ops/quantize.int8_dots``,
+   ``torch._int_mm`` on the card) of the per-batch quantized queries, and
+   with a dense bf16 ``shadow`` re-scores its top ``max(k, rerank_depth)``
+   exactly (the row's own norm) before the final top k; int8 and shadow
+   configurations never take the union-scan kernel, as in JAX;
    PQ storage (``pq`` given) always takes the PQ chunk body
    (``_chunk_body_pq``): residual codes decoded (``pq_w``: through the
    decode kernel's wrapper, else the plain gather), one product per union
    segment plus the coarse stage's q.centroid shift, a running top
    ``k_cand``, and the optional compact refine shadow;
 5. the spill tier (window overflow + streaming adds) is scored once for the
-   whole batch and merged exactly, then scores become distances.
+   whole batch (quantized, with no shadow, for int8) and merged exactly, then
+   scores become distances.
 
 Where JAX selects with ``lax.approx_max_k`` (the chunk bodies; the coarse
 stage past 2,048 lists), the port selects exactly: off the TPU
 ``approx_max_k`` is an exact top-k, so the CPU parity tests compare like
 with like. Selection ties go to the lowest index throughout (stable sorts /
 ``small_topk``).
-
-int8 storage and the dense bf16 shadow rerank are not ported yet: they raise
-``NotImplementedError`` naming the int8 tier.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 
 from .distance import NEG_INF, merge_topk, small_topk
 from .pq_decode import decode as pq_decode_kernel, decode_reference as pq_decode_plain
+from .quantize import int8_dots, quantize_rows
 from .union_scan import (
     decode_selected, decode_topk, kernel_eligible, pick_bb, union_scan,
 )
@@ -50,13 +54,6 @@ _STEP_BYTES_BUDGET = 1 << 30
 _COARSE_APPROX_MIN_NLIST = 2048
 _RANK_INF = 1 << 30
 logger = logging.getLogger(__name__)
-
-
-def _not_ported(scales=None, shadow=None) -> None:
-    if scales is not None or shadow is not None:
-        raise NotImplementedError(
-            "int8 IVF storage and the dense shadow rerank are not ported yet "
-            "(the int8 tier)")
 
 
 def _topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -186,29 +183,50 @@ def _live_rows(rid, filt):
     return live
 
 
-def _score_rows(qf, rows, rsq, rid, metric, filt=None):
-    """Exact internal scores (higher better) of queries vs rows: queries
-    cast to the storage dtype, products in float32."""
-    dots = qf.to(rows.dtype).float() @ rows.float().T
+def _score_rows(qf, q_i8, q_scale, rows, rscale, rsq, rid, metric, filt=None):
+    """Exact internal scores (higher better) of queries vs rows: int8 codes
+    (``rscale`` given) by the int8 product of the quantized queries, scaled
+    as JAX does; otherwise queries cast to the storage dtype, products in
+    float32."""
+    if rscale is not None:
+        dots = int8_dots(q_i8, rows).float() * q_scale[:, None] * rscale[None, :]
+    else:
+        dots = qf.to(rows.dtype).float() @ rows.float().T
     scores = 2.0 * dots - rsq[None, :] if metric == "L2" else dots
     return scores.masked_fill(~_live_rows(rid, filt)[None, :], NEG_INF)
 
 
-def _chunk_body(q, u, codes, sorted_sq, sorted_ids, *, k: int, window: int,
-                metric: str, rerank_depth: int, filt=None):
+def _chunk_body(q, q_i8, q_scale, u, codes, scales, sorted_sq, sorted_ids, shadow, *,
+                k: int, window: int, metric: str, rerank_depth: int, filt=None):
     """Search one query chunk against its union blocks (the plain chunk
-    body). Returns (values, ids) on the internal scale. JAX selects
-    ``max(k, rerank_depth)`` approximately, then the exact top k; the exact
-    top k of the exact top k_cand is the exact top k."""
+    body). Returns (values, ids) on the internal scale. The top
+    ``k_cand = max(k, rerank_depth)`` is selected; without a shadow the
+    exact top k of it is the exact top k. With the slot-laid bf16
+    ``shadow`` (int8 storage) the candidates are re-scored exactly against
+    their shadow rows with the rows' own norms, re-masked (a dead or
+    filtered row never comes back), and the top k kept."""
     d = q.shape[1]
     ul = u.long()
     rows = codes.view(-1, window, d)[ul].reshape(-1, d)
     rid = sorted_ids.view(-1, window)[ul].reshape(-1)
     rsq = sorted_sq.view(-1, window)[ul].reshape(-1)
-    scores = _score_rows(q, rows, rsq, rid, metric, filt=filt)
+    rscale = scales.view(-1, window)[ul].reshape(-1) if scales is not None else None
+    scores = _score_rows(q, q_i8, q_scale, rows, rscale, rsq, rid, metric, filt=filt)
     k_cand = min(max(k, rerank_depth), scores.shape[1])
-    best_v, pos = _topk(scores, min(k, k_cand))
-    return best_v, rid[pos.long()]
+    if shadow is None:
+        best_v, pos = _topk(scores, min(k, k_cand))
+        return best_v, rid[pos.long()]
+    best_v, pos = _topk(scores, k_cand)
+    pos = pos.long()
+    best_i = rid[pos]
+    slot = ul[pos // window] * window + pos % window            # (qc, k_cand)
+    srows = shadow[slot].float()                                # (qc, kc, D)
+    dots = torch.einsum("qd,qkd->qk", q, srows)
+    # the shadow row's own norm, not the exact stored one (see _chunk_body_pq)
+    sc = 2.0 * dots - (srows * srows).sum(-1) if metric == "L2" else dots
+    sc = sc.masked_fill(~_live_rows(best_i, filt), NEG_INF)
+    best_v, sel = _topk(sc, min(k, k_cand))
+    return best_v, best_i.gather(1, sel.long())
 
 
 def _chunk_body_pq(q, qr, u, cdu, codes, sorted_sq, sorted_ids, pq_cb, *, k: int,
@@ -371,8 +389,10 @@ def fused_ivf_search_math(q, centroids, cent_sq, codes, scales, sorted_sq,
     decodes through the kernel wrapper; ``pq_shadow`` the compact refine
     shadow (rows, scales | None, exact norms, slot -> row); ``pq_r`` the OPQ
     rotation (codes encode (x - c) @ R, so q.r̂ = (q @ R).dec); ``useg`` the
-    union segments (None: from the step budget)."""
-    _not_ported(scales, shadow)
+    union segments (None: from the step budget).
+
+    int8 storage: ``scales`` the per-slot row scales (the spill tier's in
+    ``spill``); ``shadow`` the slot-laid bf16 rerank rows."""
     nq, d = q.shape
     nlist = centroids.shape[0]
     nprobe = min(nprobe, nlist)
@@ -382,6 +402,9 @@ def fused_ivf_search_math(q, centroids, cent_sq, codes, scales, sorted_sq,
         qf, centroids, cent_sq, nprobe=nprobe, metric=metric,
         union_cap=union_cap, qc=qc, union_mode=union_mode)
     if backend == "pallas":
+        if scales is not None or shadow is not None:
+            raise ValueError("backend='pallas' requires full-precision storage "
+                             "(int8 / shadow configurations run the plain chunk body)")
         if filt is not None:
             raise ValueError("backend='pallas' has no filter operand; filtered "
                              "searches run the plain chunk body")
@@ -420,10 +443,13 @@ def fused_ivf_search_math(q, centroids, cent_sq, codes, scales, sorted_sq,
         vals_p = torch.cat([p[0] for p in parts])
         ids_p = torch.cat([p[1] for p in parts])
     else:
-        parts = [_chunk_body(qp[s * qc:(s + 1) * qc], u_all[s], codes,
-                             sorted_sq, sorted_ids, k=k, window=window,
-                             metric=metric, rerank_depth=rerank_depth,
-                             filt=filt)
+        # int8 storage: the permuted, padded queries quantized once per batch
+        qp_i8, qp_scale = quantize_rows(qp) if scales is not None else (None, None)
+        chunk = lambda t, s: t[s * qc:(s + 1) * qc] if t is not None else None
+        parts = [_chunk_body(qp[s * qc:(s + 1) * qc], chunk(qp_i8, s), chunk(qp_scale, s),
+                             u_all[s], codes, scales, sorted_sq, sorted_ids, shadow,
+                             k=k, window=window, metric=metric,
+                             rerank_depth=rerank_depth, filt=filt)
                  for s in range(u_all.shape[0])]
         vals_p = torch.cat([p[0] for p in parts])
         ids_p = torch.cat([p[1] for p in parts])
@@ -438,8 +464,9 @@ def _spill_and_finalize(best_v, best_i, qf, q_sq, spill, metric, k, nq,
     then internal scores -> FAISS values, padded to k."""
     if spill is not None:
         s_codes, s_scales, s_sq, s_ids = spill
-        _not_ported(s_scales)
-        sscores = _score_rows(qf, s_codes, s_sq, s_ids, metric, filt=filt)
+        q_i8, q_scale = quantize_rows(qf) if s_scales is not None else (None, None)
+        sscores = _score_rows(qf, q_i8, q_scale, s_codes, s_scales, s_sq, s_ids, metric,
+                              filt=filt)
         k_spill = min(k, sscores.shape[1])
         sv, sp = _topk(sscores, k_spill)
         si = s_ids[sp.long()]
@@ -475,21 +502,23 @@ def fused_ivf_search(q, centroids, cent_sq, codes, scales, sorted_sq,
     launches it or raises), else the plain chunk body; "xla" / "pallas"
     force a route ("pallas" on a CPU index runs the kernel's plain
     version). A filter or PQ storage routes "auto" to the plain chunk body;
-    PQ's decode takes the kernel wrapper when ``pq_w`` is truthy.
+    PQ's decode takes the kernel wrapper when ``pq_w`` is truthy. int8
+    storage (``scales``) and a dense ``shadow`` take the plain chunk body;
+    "pallas" raises ``ValueError`` for them.
     Returns (values, indices), (Nq, k)."""
-    _not_ported(scales, shadow)
     nq, dim = q.shape
     resolved = resolve_fused_dispatch(
         nq=nq, dim=dim, nlist=centroids.shape[0], window=window,
-        code_bytes=codes.element_size(), quantized=False, has_shadow=False,
+        code_bytes=codes.element_size(), quantized=scales is not None,
+        has_shadow=shadow is not None,
         has_pq=pq is not None, has_filter=filt is not None, nprobe=nprobe,
         union_cap=union_cap, qc=qc, backend=backend,
         platform=codes.device.type)
     useg = (_pq_union_segments(resolved["union_cap"], window, codes.shape[1], dim,
                                resolved["qc"]) if pq is not None else None)
     return fused_ivf_search_math(
-        q, centroids, cent_sq, codes, None, sorted_sq, sorted_ids, spill,
-        None, filt, pq, pq_w, pq_shadow, pq_r, k=k, nprobe=resolved["nprobe"],
+        q, centroids, cent_sq, codes, scales, sorted_sq, sorted_ids, spill,
+        shadow, filt, pq, pq_w, pq_shadow, pq_r, k=k, nprobe=resolved["nprobe"],
         window=window, metric=metric, recall_target=recall_target,
         union_cap=resolved["union_cap"], qc=resolved["qc"],
         rerank_depth=rerank_depth, union_mode=union_mode,

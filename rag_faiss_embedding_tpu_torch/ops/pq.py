@@ -22,7 +22,8 @@ functions and contracts:
   their products taken in float32 (JAX's ``preferred_element_type``); with
   ``"f32"`` everything is float32. ``pq_w`` truthy decodes through the
   kernel wrapper (the kernel on the card), else through the plain gather.
-  Only the exact selector is ported.
+  "exact" and "approx" both select exactly (``lax.approx_max_k`` is an
+  exact top-k off the TPU).
 """
 
 from __future__ import annotations
@@ -165,6 +166,8 @@ def pq_search(
     metric: str = "L2",
     n_valid: int = 0,
     chunk_size: int = 524288,
+    selector: str = "exact",
+    recall_target: float = 0.99,
     dead: Optional[torch.Tensor] = None,
     compute_dtype: str = "bf16",
     pq_w: Optional[bool] = None,
@@ -176,9 +179,13 @@ def pq_search(
     k > N padded with -1 / inf. Returns (values, ids) on the codes'
     device. ``pq_w`` decodes through the kernel's wrapper (``pq_decode.
     decode``), else the plain decode; the port has no interpret mode, so
-    ``interpret=True`` takes the plain decode too."""
+    ``interpret=True`` takes the plain decode too. ``selector`` ("exact" or
+    "approx") and ``recall_target`` are taken for the JAX signature: both
+    selectors select exactly, as ``lax.approx_max_k`` does off the TPU."""
     if metric not in ("L2", "IP"):
         raise ValueError(f"metric must be 'L2' or 'IP', got {metric!r}")
+    if selector not in ("exact", "approx"):
+        raise ValueError(f"selector must be 'exact' or 'approx', got {selector!r}")
     if compute_dtype not in ("bf16", "f32"):
         raise ValueError("compute_dtype must be 'bf16' or 'f32'")
     dev = codes.device
@@ -204,4 +211,4 @@ def pq_search(
         scores = scores.masked_fill(~live[None, :], NEG_INF)
         cv, cp = small_topk(scores, min(k_eff, stop - start))
         best_v, best_i = merge_topk(best_v, best_i, cv, cp + start, k_eff)
-    return finish_topk(best_v, best_i, qf, k, metric)
+    return finish_topk(best_v, best_i, sqnorms(qf), k, metric)

@@ -126,13 +126,28 @@ def test_pairwise_matches_jax(rng):
 
 
 def test_approx_selector_is_not_ported(rng, tmp_path):
-    """The plain scan takes no selector; the index, which owns the choice,
-    rejects "approx" and names the tier that brings it."""
+    """The "approx" selector is ported: ``exact_search(selector="approx")``
+    equals JAX's (``lax.approx_max_k`` is an exact top-k off the TPU) and the
+    exact selector, whatever ``recall_target``; a ``VectorStore`` with it
+    searches as JAX's does; an unknown selector raises."""
+    from rag_faiss_embedding_tpu.index import VectorStore as JStore
     from rag_faiss_embedding_tpu_torch.index import VectorStore
 
-    db = rng.standard_normal((10, 4)).astype(np.float32)
-    with pytest.raises(TypeError):
-        TD.exact_search(db[:1], db, 2, selector="approx")
-    with pytest.raises(NotImplementedError, match="the int8 tier"):
-        VectorStore(dimension=4, selector="approx",
-                    index_path=tmp_path / "index.tpu", device="cpu")
+    db = rng.standard_normal((300, 16)).astype(np.float32)
+    q = rng.standard_normal((5, 16)).astype(np.float32)
+    for metric in ("L2", "IP"):
+        j, t = _both(q, db, 7, metric=metric, chunk_size=128, selector="approx",
+                     recall_target=0.9)
+        _assert_same(j, t)
+        _assert_same(j, _both(q, db, 7, metric=metric, chunk_size=128)[1])
+    with pytest.raises(ValueError, match="selector"):
+        TD.exact_search(db[:1], db, 2, selector="rerank")
+    tstore = VectorStore(dimension=16, selector="approx",
+                         index_path=tmp_path / "t.tpu", device="cpu")
+    jstore = JStore(dimension=16, selector="approx", index_path=tmp_path / "j.tpu")
+    for store in (tstore, jstore):
+        store.add_vectors(db, list(range(300)))
+    assert tstore.index.selector == "approx"
+    (td, ti), (jd, ji) = tstore.search(q, k=5), jstore.search(q, k=5)
+    assert ti == ji
+    np.testing.assert_allclose(np.array(td), np.array(jd), rtol=RTOL, atol=ATOL)

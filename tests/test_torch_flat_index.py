@@ -91,12 +91,127 @@ def test_reset_and_empty(rng):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="the int8 tier"):
-        TFlat(8, dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="the int8 tier"):
-        TFlat(8, selector="approx", device="cpu")
-    with pytest.raises(ValueError):
-        TFlat(8, metric="cosine", device="cpu")
+    """int8 storage and the "approx" / "rerank" selectors are ported (the
+    int8 tier); what JAX refuses, the port refuses with the same error."""
+    assert TFlat(8, dtype="int8", device="cpu").quantized
+    assert TFlat(8, selector="approx", device="cpu").selector == "approx"
+    t = TFlat(8, dtype="int8", selector="rerank", device="cpu")
+    assert t._shadow.dtype == torch.bfloat16 and t.recall_target == 0.99
+    assert TFlat(8, dtype="int8", selector="rerank", rerank_shadow=False,
+                 device="cpu")._shadow is None
+    assert TFlat(8, dtype="int8", device="cpu").recall_target == 0.995
+    for kw in (dict(metric="cosine"), dict(selector="rerank"), dict(selector="fast")):
+        with pytest.raises(ValueError):
+            JFlat(8, **kw)
+        with pytest.raises(ValueError):
+            TFlat(8, device="cpu", **kw)
+
+
+def _int8_pair(dim, selector, metric="L2", **kw):
+    return (JFlat(dim, metric=metric, dtype="int8", selector=selector, use_pallas=False, **kw),
+            TFlat(dim, metric=metric, dtype="int8", selector=selector, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("selector", ["exact", "approx", "rerank"])
+@pytest.mark.parametrize("metric", ["L2", "IP"])
+def test_int8_add_grow_remove_filter_match_jax(rng, selector, metric):
+    """int8 storage through growth, tombstones and a filter, with each
+    selector: the codes, scales and exact norms equal JAX's (the norms to
+    the float32 summation order), the dequantized rows equal, and searches
+    give JAX's ids with values to rtol 1e-5 / atol 1e-4 (the query norms and
+    the rerank's re-score are summed in other orders)."""
+    j, t = _int8_pair(24, selector, metric)
+    for n in (700, 900, 1300):
+        vecs = rng.standard_normal((n, 24)).astype(np.float32)
+        j.add(vecs)
+        t.add(vecs)
+    assert t._capacity == j._capacity == 4096 and t._buf.dtype == torch.int8
+    np.testing.assert_array_equal(t._buf.numpy(), np.asarray(j._buf))
+    np.testing.assert_array_equal(t._scales.numpy(), np.asarray(j._scales))
+    np.testing.assert_allclose(t._sq.numpy(), np.asarray(j._sq), rtol=1e-6)
+    if selector == "rerank":
+        np.testing.assert_array_equal(t._shadow.float().numpy(),
+                                      np.asarray(j._shadow, np.float32))
+    np.testing.assert_array_equal(t.vectors(), np.asarray(j.vectors()))
+    q = rng.standard_normal((5, 24)).astype(np.float32)
+    _assert_search_same(j, t, q, 7)
+    _assert_search_same(j, t, q[0], 3)
+    assert t.remove_ids([0, 1, 5]) == j.remove_ids([0, 1, 5]) == 3
+    ids = _assert_search_same(j, t, q, 10)
+    assert not np.isin(ids, [0, 1, 5]).any()
+    allow = np.zeros(2900, bool)
+    allow[100:140] = True
+    ids = _assert_search_same(j, t, q, 50, filter_mask=allow)
+    assert ((ids[:, :40] >= 100) & (ids[:, :40] < 140)).all() and (ids[:, 40:] == -1).all()
+    t.reset()
+    j.reset()
+    assert (_assert_search_same(j, t, q, 3) == -1).all()
+
+
+@pytest.mark.parametrize("selector,shadow", [("exact", False), ("rerank", True),
+                                             ("rerank", False)])
+def test_int8_state_dict_cross_loads(rng, tmp_path, selector, shadow):
+    """int8 files cross-load both ways, lossless (codes, scales, exact norms,
+    the bf16 shadow as its bits, tombstones): JAX's keys and dtypes, and each
+    reloaded index searches as the other package's did before the save."""
+    j, t = _int8_pair(16, selector, rerank_shadow=shadow)
+    vecs = rng.standard_normal((300, 16)).astype(np.float32)
+    for index in (j, t):
+        index.add(vecs)
+        index.remove_ids([3, 7])
+    jstate, tstate = j.state_dict(), t.state_dict()
+    assert sorted(jstate) == sorted(tstate)
+    assert ("shadow" in tstate) == shadow
+    for key in jstate:
+        a, b = np.asarray(jstate[key]), np.asarray(tstate[key])
+        assert a.dtype == b.dtype, key
+        if key == "sqnorms":
+            np.testing.assert_allclose(a, b, rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(a, b)
+    np.savez(tmp_path / "j.npz", **jstate)
+    np.savez(tmp_path / "t.npz", **tstate)
+    load = lambda p: {k: (v.item() if v.ndim == 0 else v) for k, v in np.load(p).items()}
+    kw = dict(selector=selector, rerank_shadow=shadow)
+    t2 = TFlat.from_state_dict(load(tmp_path / "j.npz"), device="cpu", **kw)
+    j2 = JFlat.from_state_dict(load(tmp_path / "t.npz"), use_pallas=False, **kw)
+    assert t2.quantized and t2.ndeleted == 2 and j2.ndeleted == 2
+    q = rng.standard_normal((6, 16)).astype(np.float32)
+    _assert_search_same(j, t2, q, 5)
+    _assert_search_same(j2, t, q, 5)
+    np.testing.assert_array_equal(t2._sq[:300].numpy(), np.asarray(j._sq[:300]))
+
+
+def test_jax_int8_rerank_reload_fault_is_not_copied(rng, tmp_path):
+    """A JAX ``VectorStore(dtype="int8", selector="rerank")`` saves its bf16
+    shadow, but the JAX store reloads it as selector "exact" with no shadow
+    (``VectorStore.load_index`` passes no selector to ``from_state_dict``):
+    pinned here. The port loads the same file as "rerank" with the shadow,
+    and answers as the JAX store did before the save."""
+    vecs = rng.standard_normal((400, 16)).astype(np.float32)
+    q = vecs[::40] + 0.05 * rng.standard_normal((10, 16)).astype(np.float32)
+    path = tmp_path / "int8.tpu"
+    jstore = JStore(dimension=16, dtype="int8", selector="rerank", index_path=path)
+    jstore.add_vectors(vecs, list(range(1000, 1400)))
+    jd, ji = jstore.search(q, k=5)
+    jstore.save_index()
+    assert "shadow" in np.load(path).files
+
+    jback = JStore(dimension=16, index_path=path)
+    assert jback.index.selector == "exact" and jback.index._shadow is None  # the fault
+    tback = TStore(dimension=16, index_path=path, device="cpu")
+    assert tback.index.selector == "rerank" and tback.index.quantized
+    np.testing.assert_array_equal(tback.index._shadow[:400].float().numpy(),
+                                  np.asarray(jstore.index._shadow[:400], np.float32))
+    td, ti = tback.search(q, k=5)
+    assert ti == ji
+    for a, b in zip(td, jd):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
+    # a port-saved rerank store reloads as "rerank" too, in the port
+    tback.save_index(tmp_path / "again.tpu")
+    again = TStore(dimension=16, index_path=tmp_path / "again.tpu", device="cpu")
+    assert again.index.selector == "rerank"
+    assert again.search(q, k=5)[1] == ji
 
 
 @pytest.mark.parametrize("use_pallas", [None, True, False])

@@ -10,6 +10,7 @@ different orders; the data holds no near-ties at that scale). k-means
 itself is not compared here: the RNGs differ (tests/test_torch_kmeans.py).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -303,21 +304,134 @@ def test_probe_scan_oracle_agrees_with_fused_full_probe():
 
 
 def test_not_ported_yet_raise_naming_the_slice():
-    with pytest.raises(NotImplementedError, match="the int8 tier"):
-        TIVF(D, dtype="int8")
-    with pytest.raises(NotImplementedError, match="the int8 tier"):
-        TIVF(D, rerank=True)
-    # IVF-PQ is ported: pq_m gives uint8 code storage, and with it rerank
-    # keeps a refine shadow
+    """int8 storage and ``rerank`` are ported (the int8 tier): int8 reranks
+    by default, float storage keeps no shadow (as in JAX), and int8 or a
+    shadow refuse the kernel route with JAX's ``ValueError``. Only
+    ``build_chunked`` still raises, naming itself."""
+    for rerank, shadow in ((None, True), (True, True), (False, False)):
+        idx = TIVF(D, nlist=4, dtype="int8", rerank=rerank, train_iters=2, device="cpu")
+        assert idx.quantized and idx.rerank == shadow and idx._pending.quantized
+        idx.build(_data()[0][:512])
+        assert (idx._sorted_shadow is not None) == shadow
+        assert idx._cent_store.dtype == torch.bfloat16 and idx._sorted_scales is not None
+    assert TIVF(D, rerank=True, device="cpu").rerank
+    # IVF-PQ: pq_m gives uint8 code storage, and with it rerank keeps a
+    # refine shadow
     pq = TIVF(D, pq_m=16, rerank=True, device="cpu")
     assert pq.dtype == torch.uint8 and pq.rerank and pq.refine_dtype == "int8"
     with pytest.raises(NotImplementedError, match="build_chunked"):
         TIVF(D, device="cpu").build_chunked(None, 10)
-    with pytest.raises(NotImplementedError, match="the int8 tier"):
-        tscan.fused_ivf_search(torch.zeros(1, D), torch.zeros(2, D), torch.zeros(2),
-                               torch.zeros(3 * 128, D), torch.ones(3 * 128),
-                               torch.zeros(3 * 128), torch.zeros(3 * 128, dtype=torch.int32),
-                               k=1, nprobe=1, window=128)
+    args = (torch.zeros(1, D), torch.zeros(2, D), torch.zeros(2),
+            torch.zeros(3 * 128, D, dtype=torch.int8), torch.ones(3 * 128),
+            torch.zeros(3 * 128), torch.zeros(3 * 128, dtype=torch.int32))
+    with pytest.raises(ValueError, match="pallas"):
+        tscan.fused_ivf_search(*args, k=1, nprobe=1, window=128, backend="pallas")
+    jargs = [jnp.asarray(a.numpy()) for a in args]
+    _agree(tscan.fused_ivf_search(*args, k=1, nprobe=1, window=128),
+           jscan.fused_ivf_search(*jargs, k=1, nprobe=1, window=128))
+
+
+_JAX_INT8 = {}
+
+
+def _jax_int8(metric, balance, rerank):
+    """A JAX-built int8 index with a streamed pending tier (module cache)."""
+    key = (metric, balance, rerank)
+    if key not in _JAX_INT8:
+        pts, q = _data(metric=metric)
+        idx = JIVF(D, nlist=16, metric=metric, dtype="int8", train_iters=5,
+                   balance=balance, rerank=rerank)
+        idx.build(pts)
+        idx.add(pts[:40] + 0.01)
+        _JAX_INT8[key] = (idx, pts, q)
+    return _JAX_INT8[key]
+
+
+INT8_CASES = [("L2", "spill", None), ("IP", "reassign", None), ("L2", "reassign", False)]
+
+
+@pytest.mark.parametrize("metric,balance,rerank", INT8_CASES)
+def test_int8_jax_index_loads_in_port_and_searches_agree(metric, balance, rerank):
+    """A JAX-built dense int8 index (with its bf16 shadow by default, and
+    without) loads in the port: the codes, scales, shadow and pending tier
+    arrive bit for bit, and searches agree (ids equal; values to rtol 1e-5 /
+    atol 1e-3: the int32 dots are exact, the shadow's re-score is summed in
+    another order) at several nprobe and k, after removals and with a
+    filter; the dequantized rows equal JAX's."""
+    jidx, pts, q = _jax_int8(metric, balance, rerank)
+    tidx = TIVF.from_state_dict(_state(jidx), device="cpu")
+    assert tidx.quantized and tidx.rerank == (rerank is not False)
+    np.testing.assert_array_equal(tidx._sorted_vecs.numpy(), np.asarray(jidx._sorted_vecs))
+    np.testing.assert_array_equal(tidx._sorted_scales.numpy(),
+                                  np.asarray(jidx._sorted_scales))
+    if tidx.rerank:
+        np.testing.assert_array_equal(tidx._sorted_shadow.float().numpy(),
+                                      np.asarray(jidx._sorted_shadow, np.float32))
+    assert tidx._pending.ntotal == jidx._pending.ntotal == 40
+    for k in (1, 10):
+        for nprobe in (2, 16):
+            _agree(tidx.search(q, k, nprobe=nprobe), jidx.search(q, k, nprobe=nprobe))
+    np.testing.assert_array_equal(tidx.vectors(), np.asarray(jidx.vectors()))
+    gone = np.arange(0, 1064, 7)
+    tidx.remove_ids(gone)
+    jidx = JIVF.from_state_dict(_state(jidx))
+    jidx.remove_ids(gone)
+    ids = _agree(tidx.search(q, 10), jidx.search(q, 10))
+    assert not np.isin(ids, gone).any()
+    filt = np.ones(jidx.ntotal, bool)
+    filt[::3] = False
+    ids = _agree(tidx.search(q, 10, filter_mask=filt), jidx.search(q, 10, filter_mask=filt))
+    assert filt[ids[ids >= 0]].all()
+
+
+@pytest.mark.parametrize("metric,balance,rerank", INT8_CASES)
+def test_int8_port_index_loads_in_jax(tmp_path, metric, balance, rerank):
+    """A port-built int8 index, streamed adds and tombstones included, saved
+    and reloaded by JAX (and back): JAX's keys and dtypes; both packages
+    search it the same; the JAX reload keeps (or lacks) the shadow."""
+    pts, q = _data(seed=3, metric=metric)
+    tidx = TIVF(D, nlist=16, metric=metric, dtype="int8", train_iters=5,
+                balance=balance, rerank=rerank, device="cpu")
+    tidx.build(pts)
+    tidx.add(pts[:30] + 0.02)
+    tidx.remove_ids([1, 2, 1030])
+    state = _state(tidx)
+    assert state["codes"].dtype == np.int8 and state["scales"].dtype == np.float32
+    assert state["pending_scales"].dtype == np.float32
+    assert ("shadow" in state) == (rerank is not False)
+    np.savez(tmp_path / "t.npz", **state)
+    jidx = JIVF.from_state_dict(dict(np.load(tmp_path / "t.npz")))
+    assert jidx.quantized and jidx.rerank == (rerank is not False)
+    _agree(tidx.search(q, 10), jidx.search(q, 10))
+    back = TIVF.from_state_dict(_state(jidx), device="cpu")
+    _agree(back.search(q, 10, nprobe=4), jidx.search(q, 10, nprobe=4))
+    # rebuild merges the pending tier, re-quantizing the dequantized rows
+    tidx.rebuild()
+    jidx.rebuild()
+    _agree(tidx.search(q, 10), jidx.search(q, 10))
+
+
+@pytest.mark.parametrize("kw", GRID)
+@pytest.mark.parametrize("backend", ["auto", "xla", "pallas"])
+@pytest.mark.parametrize("platform", ["cuda", "cpu"])
+@pytest.mark.parametrize("quantized,has_shadow", [(True, True), (True, False),
+                                                  (False, True)])
+def test_resolve_fused_dispatch_int8_matches_jax(kw, backend, platform, quantized,
+                                                 has_shadow):
+    """int8 storage or a dense shadow: "auto" picks the plain chunk body and
+    "pallas" raises, on a CUDA index as on a TPU."""
+    common = dict(kw, quantized=quantized, has_shadow=has_shadow, has_pq=False,
+                  has_filter=False, backend=backend)
+    jplat = {"cuda": "tpu"}.get(platform, platform)
+    if backend == "pallas":
+        for fn, plat in ((jscan.resolve_fused_dispatch, jplat),
+                         (tscan.resolve_fused_dispatch, platform)):
+            with pytest.raises(ValueError):
+                fn(platform=plat, **common)
+        return
+    want = jscan.resolve_fused_dispatch(platform=jplat, **common)
+    assert want["backend"] == "xla"
+    assert tscan.resolve_fused_dispatch(platform=platform, **common) == want
 
 
 def test_cpu_index_never_counts_a_launch():

@@ -22,6 +22,7 @@ import inspect
 import pkgutil
 
 import pytest
+import torch
 
 import rag_faiss_embedding_tpu_torch as port
 
@@ -31,17 +32,8 @@ FLAX_FIELDS = {"parent", "name"}
 # "module:qualname": (parameters or members the port lacks, parameters the
 # port adds beyond ALLOWED_EXTRA, the ROADMAP Queue 1 item that closes it)
 GAPS = {
-    "ops.distance:exact_search": ({"selector", "recall_target"}, set(),
-                                  "Queue 1 item 2, the int8 tier"),
-    "ops.pq:pq_search": ({"selector", "recall_target"}, set(), "Queue 1 item 2, the int8 tier"),
-    "index.flat:FlatIndex.__init__": ({"recall_target", "rerank_shadow"}, set(),
-                                      "Queue 1 item 2, the int8 tier"),
     "index.vector_store:VectorStore.__init__": ({"mesh"}, set(),
                                                 "Queue 1 item 7, multi-GPU"),
-    "index.vector_store:VectorStore": ({"import_faiss"}, set(),
-                                       "Queue 1 item 4, faiss_import"),
-    "models.minilm:MiniLMConfig": ({"compute_dtype"}, set(),
-                                   "Queue 1 item 3, the encoder's bf16 compute"),
     "models.minilm:MiniLMEncoder": ({"init_params"}, set(), "Queue 1 item 8, training"),
     "index.ivf:IVFFlatIndex.build_chunked": ({"source", "n", "chunk_size", "train_rows"},
                                              {"args", "kwargs"}, "Queue 1 item 6"),
@@ -141,13 +133,24 @@ def test_every_listed_gap_names_a_shared_item_and_a_tier():
 
 
 def test_closed_gaps_stay_closed():
-    """The gaps this round closed: ``interpret`` on ``pq_search`` (the port
-    has no interpret mode: True runs the plain decode) and ``use_pallas`` on
+    """The gaps closed so far: ``interpret`` on ``pq_search`` (the port has
+    no interpret mode: True runs the plain decode) and ``use_pallas`` on
     ``FlatIndex`` (accepted for the JAX API; the card runs the kernel for
-    every search)."""
+    every search); then the int8 tier's ``selector`` / ``recall_target`` of
+    ``exact_search`` and ``pq_search`` and ``recall_target`` /
+    ``rerank_shadow`` of ``FlatIndex``, ``VectorStore.import_faiss`` and
+    ``MiniLMConfig.compute_dtype``."""
     from rag_faiss_embedding_tpu_torch.index.flat import FlatIndex
+    from rag_faiss_embedding_tpu_torch.index.vector_store import VectorStore
+    from rag_faiss_embedding_tpu_torch.models.minilm import MiniLMConfig
+    from rag_faiss_embedding_tpu_torch.ops.distance import exact_search
     from rag_faiss_embedding_tpu_torch.ops.pq import pq_search
 
     assert "interpret" in _params(pq_search)
     assert "use_pallas" in _params(FlatIndex.__init__)
+    for fn in (exact_search, pq_search):
+        assert {"selector", "recall_target"} <= set(_params(fn))
+    assert {"recall_target", "rerank_shadow"} <= set(_params(FlatIndex.__init__))
+    assert callable(VectorStore.import_faiss)
+    assert MiniLMConfig(dtype="bfloat16").compute_dtype == torch.bfloat16
     assert len(ITEMS) > 20
