@@ -113,9 +113,27 @@ Phases, one JSON object per line:
     (the flat one still "rerank", the IVF one with its shadow), each
     request's results held to the saved index searched on the CPU, and
     ``torch._int_mm`` run on every search.
+15. serve: the port's HTTP server (``serve.api.make_app``) in this process on
+    ``127.0.0.1:0`` over a flat ``RAGManager`` of the slice's 4,096
+    documents at full MiniLM-L6 width (``serve_max_batch`` 64, the default 2
+    ms window, no periodic watchdog): one watchdog probe; ``/health``; 256
+    ``POST /search`` requests (top_k 1-10 from the seed) from 64 client
+    threads, whose batches (``/stats``) must each have launched K1 once and
+    each equal the same engine's ``search_batch`` of the same texts on the
+    saved index loaded on the CPU, every answer its batch's list cut to its
+    top_k; 32 sequential requests; a filtered request (K1 with its mask) and
+    one that generates an answer; two documents added, found, deleted and
+    gone; 400 / 422 / 404 / 405. Then the same server over an IVF manager
+    (nlist 64): 64 concurrent requests, K2 launched, held to the CPU the same
+    way. Then ``cli.pipeline`` over ``examples/corpus`` (5 pages indexed)
+    and ``cli.selfindex`` over the port's package (one document per ``.py``
+    file) at once, then ``cli.search`` for one page's text (its title
+    first), each a subprocess on the card. HTTP latency p50 / p99 on the host
+    clock, the batch sizes and the launches.
 
-Then a ``{"kernels": [...]}`` line (launch counts from each kernel's path:
-the flat scan's from the slice, union-scan variant 1's from the IVF slice,
+Then a ``{"kernels": [...]}`` line (launch counts from each kernel's path,
+with a ``paths`` breakdown: the flat scan's from the slice and the server,
+union-scan variant 1's from the IVF slice and the IVF server,
 variant 2's from the IVF kernel phase, the PQ decode's from the PQ slice,
 K5's from the prototype search, K6's from the probe's run; each with its
 bound at the path's shape, its achieved TFLOP/s and share of that bound,
@@ -1528,6 +1546,401 @@ def int8_slice_phase(torch):
     return out
 
 
+# ------------------------------------------------------------------ phase 15
+SERVE_CLIENTS = 64  # client threads
+SERVE_REQUESTS = 256  # concurrent requests to the flat server
+SERVE_SEQUENTIAL = 32
+IVF_SERVE_REQUESTS = 64
+
+
+def http_json(port: int, method: str, path: str, body=None, raw=None):
+    """(status, JSON body, ms on the host clock) of one request on its own
+    connection; every response must carry Content-Length and a JSON
+    Content-Type."""
+    import http.client
+
+    data = raw if raw is not None else (None if body is None else json.dumps(body))
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t = time.perf_counter()
+        conn.request(method, path, body=data, headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        payload = resp.read()
+        ms = (time.perf_counter() - t) * 1e3
+    finally:
+        conn.close()
+    if not (resp.getheader("Content-Type", "").startswith("application/json")
+            and int(resp.getheader("Content-Length", "-1")) == len(payload)):
+        raise AssertionError(f"{method} {path}: response without its JSON headers")
+    return resp.status, json.loads(payload), ms
+
+
+def percentiles(ms) -> dict:
+    s = sorted(ms)
+    return {"n": len(s), "p50_ms": s[len(s) // 2],
+            "p99_ms": s[min(len(s) - 1, int(len(s) * 0.99))], "max_ms": s[-1]}
+
+
+def batch_sizes(stats: dict) -> dict:
+    """{batch size: batches} from the server's /stats."""
+    return {int(re.fullmatch(r"batch_search\(n=(\d+)\)", k).group(1)): v["count"]
+            for k, v in stats.items()}
+
+
+def cpu_copy(torch, manager, engine, backend=None):
+    """The same engine (its encoder on the card, its SQLite store) over the
+    saved index loaded on the CPU: the kernel's plain version serves it."""
+    from rag_faiss_embedding_tpu_torch.index import IVFFlatIndex, VectorStore
+    from rag_faiss_embedding_tpu_torch.rag import QueryEngine
+
+    store = VectorStore(manager.vector_store.index.dim,
+                        index_path=manager.config.index_path, device="cpu")
+    if backend is not None:  # the IVF index through the union scan's plain version
+        store.index = IVFFlatIndex.from_state_dict(
+            manager.vector_store.index.state_dict(), device="cpu", backend=backend)
+    if store.doc_ids != manager.vector_store.doc_ids:
+        raise AssertionError("the saved index maps other documents")
+    return QueryEngine(manager.db, store, manager.embedder, generator=engine.generator)
+
+
+def record_batches(engine) -> list:
+    """Record every batch the server searches, (texts, k, results, ms on
+    the worker thread), as the engine's search_batch runs them; ``del
+    engine.search_batch`` stops it."""
+    batches, search_batch = [], engine.search_batch
+
+    def recorded(texts, k):
+        t = time.perf_counter()
+        out = search_batch(texts, k)  # ends with the hits on the host
+        batches.append((list(texts), k, out, (time.perf_counter() - t) * 1e3))
+        return out
+
+    engine.search_batch = recorded
+    return batches
+
+
+def serve_tolerance(reference, texts) -> float:
+    """assert_same_topk's atol for these queries over the reference's rows:
+    rtol x (max ||q||^2 + max ||x||^2)."""
+    import numpy as np
+
+    rows = reference.vector_store.index.vectors().astype(np.float64)
+    q = reference.embedder.generate_embeddings(texts).astype(np.float64)
+    return RTOL["float32"] * float((q * q).sum(1).max() + (rows * rows).sum(1).max())
+
+
+def check_served(answers, requests, batches, reference) -> dict:
+    """Each batch the server searched equals the same engine's search_batch
+    of the same texts on the CPU copy of the index (same_hits: ids except at
+    near-ties, distances to rtol 1e-5 and assert_same_topk's atol; a batch's
+    union of IVF lists depends on its queries, so the CPU searches the same
+    batches). Each answer is 200, holds its top_k hits, and is its batch's
+    list cut to that top_k."""
+    served, mismatched, max_err = {}, 0, 0.0
+    for texts, k, results, _ in batches:
+        atol = serve_tolerance(reference, texts)
+        for text, hits, ref in zip(texts, results, reference.search_batch(texts, k)):
+            if not same_hits(hits, ref, RTOL["float32"], atol):
+                raise AssertionError(
+                    f"served hits differ from the CPU copy's: "
+                    f"{[(h['id'], h['distance']) for h in hits]} vs "
+                    f"{[(h['id'], h['distance']) for h in ref]}")
+            mismatched += [h["id"] for h in hits] != [h["id"] for h in ref]
+            max_err = max([max_err] + [abs(a["distance"] - b["distance"])
+                                       for a, b in zip(hits, ref)])
+            served.setdefault(text, []).append(json.loads(json.dumps(hits)))
+    for (status, body, _), (text, k) in zip(answers, requests):
+        hits = body.get("similar_documents") if status == 200 else None
+        if hits is None or len(hits) != k:
+            raise AssertionError(f"a request for {k} hits got {status}: {str(body)[:200]}")
+        if not any(hits == full[:k] for full in served.get(text, [])):
+            raise AssertionError("an answer is not its batch's search")
+    return {"requests": len(answers), "batches_held": len(batches),
+            "search_batch_ms": [round(b[3], 3) for b in batches][:64],
+            "id_lists_differing_at_ties": mismatched, "max_abs_distance_err_vs_cpu": max_err}
+
+
+def batch_stages(engine, texts, k: int = 10, reps: int = 3) -> dict:
+    """Median host-clock ms of a warm search_batch's stages at len(texts)
+    queries: tokenize, embed (ends in a device-to-host copy), index search
+    (so does this), SQLite fetch, and the whole call."""
+    emb, store = engine.embedder, engine.vector_store
+    stages = {"tokenize": [], "embed": [], "vector_store.search": [], "sqlite_fetch": [],
+              "search_batch": []}
+    for _ in range(reps):
+        t = time.perf_counter()
+        emb.tokenizer.encode_batch(texts, emb.max_seq_length)
+        stages["tokenize"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        vecs = emb.generate_embeddings(texts)
+        stages["embed"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        _, ids = store.search(vecs, k)
+        stages["vector_store.search"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        for row in ids:
+            engine.db.get_documents_by_ids(row)
+        stages["sqlite_fetch"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        engine.search_batch(texts, k)
+        stages["search_batch"].append(time.perf_counter() - t)
+    return {name: statistics.median(v) * 1e3 for name, v in stages.items()}
+
+
+async def serve_flat(torch, F, manager, engine, cfg, docs, texts, pool) -> dict:
+    """The flat server: probe, health, 256 concurrent requests, 32 sequential
+    ones, a filtered and a generating request, writes, error statuses."""
+    import asyncio
+
+    import numpy as np
+
+    from rag_faiss_embedding_tpu_torch.serve.api import make_app
+
+    reference = cpu_copy(torch, manager, engine)  # the saved 4,096-row index
+    loop = asyncio.get_running_loop()
+    app = make_app(engine, cfg, manager=manager)
+    port = await app.start("127.0.0.1", 0)
+
+    def call(method, path, body=None, raw=None):
+        return loop.run_in_executor(pool, http_json, port, method, path, body, raw)
+
+    try:
+        before = F.flat_search.launches
+        await app.probe()  # one watchdog self-probe, checked on its own
+        probe_launches = F.flat_search.launches - before
+        if app.watchdog["status"] != "healthy" or probe_launches != 1:
+            raise AssertionError(f"watchdog probe: {app.watchdog}, {probe_launches} launches")
+        status, health, _ = await call("GET", "/health")
+        if (status, health["status"], health["documents"], health["vectors"]) != (
+                200, "healthy", N_DOCS, N_DOCS):
+            raise AssertionError(f"/health answered {status} {health}")
+
+        rng = np.random.default_rng(SEED + 15)
+        requests = [(t, int(k)) for t, k in zip(texts, rng.integers(1, 11, len(texts)))]
+        batches = record_batches(engine)
+        F.flat_search.launches = 0  # count the concurrent run's launches only
+        t0 = time.perf_counter()
+        answers = await asyncio.gather(*[call("POST", "/search", {
+            "text": t, "top_k": k, "generate": False}) for t, k in requests])
+        concurrent_s = time.perf_counter() - t0
+        launches = F.flat_search.launches
+        _, stats, _ = await call("GET", "/stats")
+        sizes = batch_sizes(stats)
+        if not launches == len(batches) == sum(sizes.values()) or max(sizes) < 2:
+            raise AssertionError(f"{launches} K1 launches for batches {sizes}")
+        concurrent_batches = list(batches)
+
+        seq_requests = [(text, 5) for text, _ in requests[:SERVE_SEQUENTIAL]]
+        seq_answers = [await call("POST", "/search", {"text": text, "top_k": k,
+                                                      "generate": False})
+                       for text, k in seq_requests]
+        seq_batches = batches[len(concurrent_batches):]
+        seq_launches = F.flat_search.launches - launches
+        if not seq_launches == len(seq_batches) == SERVE_SEQUENTIAL:
+            raise AssertionError(f"{seq_launches} K1 launches for {len(seq_batches)} "
+                                 f"sequential batches")
+        del engine.search_batch  # the writes below change the index
+        _, stats, _ = await call("GET", "/stats")  # the loop's view of each batch
+
+        where = {"url_prefix": "https://synthetic.example/"}
+        before = F.flat_search.launches
+        filtered = await call("POST", "/search", {"text": texts[1], "top_k": 5,
+                                                  "filter": where, "generate": False})
+        filter_launches = F.flat_search.launches - before
+        if filter_launches != 1 or not all(h["url"].startswith(where["url_prefix"])
+                                           for h in filtered[1]["similar_documents"]):
+            raise AssertionError(f"the filtered request took {filter_launches} launches")
+        status, answered, _ = await call("POST", "/search", {"text": texts[2], "top_k": 3})
+        if status != 200 or not answered.get("generated_response"):
+            raise AssertionError("no generated_response")
+
+        # writes: two new documents are found first, then gone once deleted
+        words = " ".join(d["content"] for d in docs[:50]).split()
+        new = [{"url": f"https://serve.example/{i}", "title": f"served {i}",
+                "content": " ".join(rng.choice(words, size=40))} for i in range(2)]
+        status, added, _ = await call("POST", "/documents", {"documents": new})
+        if status != 200 or added != {"added": 2, "vectors": N_DOCS + 2}:
+            raise AssertionError(f"POST /documents answered {status} {added}")
+        found = [(await call("POST", "/search", {"text": d["content"], "top_k": 3,
+                                                 "generate": False}))[1] for d in new]
+        if [f["similar_documents"][0]["url"] for f in found] != [d["url"] for d in new]:
+            raise AssertionError("an added document is not its own first hit")
+        status, deleted, _ = await call("DELETE", "/documents",
+                                        {"urls": [d["url"] for d in new]})
+        if status != 200 or deleted != {"deleted": 2, "documents": N_DOCS}:
+            raise AssertionError(f"DELETE /documents answered {status} {deleted}")
+        gone = [(await call("POST", "/search", {"text": d["content"], "top_k": 10,
+                                                "generate": False}))[1] for d in new]
+        if any(h["url"].startswith("https://serve.example/")
+               for g in gone for h in g["similar_documents"]):
+            raise AssertionError("a deleted document still answers")
+        errors = [(await call(*req))[0] for req in (
+            ("POST", "/search", None, "{not json"), ("POST", "/search", {"text": " "}),
+            ("POST", "/search", {"text": "x", "top_k": 0}), ("GET", "/nowhere"),
+            ("GET", "/search"))]
+        if errors != [400, 422, 422, 404, 405]:
+            raise AssertionError(f"error statuses {errors}")
+    finally:
+        await app.stop()
+
+    stages = {n: batch_stages(engine, texts[:n]) for n in (1, SERVE_CLIENTS)}
+    held = check_served(answers, requests, concurrent_batches, reference)
+    held_seq = check_served(seq_answers, seq_requests, seq_batches, reference)
+    ref = reference.search(texts[1], top_k=5, where=where)
+    if not same_hits(filtered[1]["similar_documents"], ref, RTOL["float32"],
+                     serve_tolerance(reference, texts[1:2])):
+        raise AssertionError("the filtered answer differs from the CPU copy's")
+    return {"concurrent": {**percentiles([a[2] for a in answers]), "clients": SERVE_CLIENTS,
+                           "wall_s": concurrent_s,
+                           "requests_per_s": len(answers) / concurrent_s, **held},
+            "sequential": {**percentiles([a[2] for a in seq_answers]), **held_seq},
+            "batch_sizes": dict(sorted(sizes.items())), "batches": sum(sizes.values()),
+            "stats_ms": {k: {q[:-1] + "ms": v[q] * 1e3 for q in ("mean_s", "p50_s", "p99_s")}
+                         for k, v in stats.items()},
+            "search_batch_stages_ms": stages,
+            "flat_scan_launches": launches, "sequential_launches": seq_launches,
+            "probe_launches": probe_launches,
+            "filter_launches": filter_launches,
+            "generated_chars": len(answered["generated_response"]),
+            "error_statuses": errors}
+
+
+async def serve_ivf(torch, U, manager, engine, cfg, texts, pool) -> dict:
+    """The same server over an IVF index: 64 concurrent requests at top_k 5."""
+    import asyncio
+
+    from rag_faiss_embedding_tpu_torch.serve.api import make_app
+
+    loop = asyncio.get_running_loop()
+    app = make_app(engine, cfg, manager=manager)
+    port = await app.start("127.0.0.1", 0)
+    batches = record_batches(engine)
+    try:
+        U.union_scan.launches = 0  # count this run's launches only
+        U.union_scan.variant_launches = {1: 0, 2: 0}
+        answers = await asyncio.gather(*[loop.run_in_executor(
+            pool, http_json, port, "POST", "/search",
+            {"text": t, "top_k": 5, "generate": False}) for t in texts])
+        launches = dict(U.union_scan.variant_launches)
+        sizes = batch_sizes((await loop.run_in_executor(
+            pool, http_json, port, "GET", "/stats"))[1])
+    finally:
+        await app.stop()
+        del engine.search_batch
+    if launches[1] <= 0:
+        raise AssertionError("the IVF server did not launch the union scan")
+    held = check_served(answers, [(t, 5) for t in texts], batches,
+                        cpu_copy(torch, manager, engine, backend="pallas"))
+    return {**percentiles([a[2] for a in answers]), **held,
+            "batch_sizes": dict(sorted(sizes.items())), "union_scan_launches": launches}
+
+
+def start_cli(args, device):
+    """One CLI as a subprocess of this script, started."""
+    cmd = [sys.executable, "-m", f"rag_faiss_embedding_tpu_torch.cli.{args[0]}", *args[1:]]
+    if device != "cuda":
+        cmd += ["--device", device]  # a rehearsal on the CPU; the card is the default
+    return time.perf_counter(), subprocess.Popen(
+        cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_cli(started, name: str, times: dict) -> str:
+    """Wait for a started CLI (300 s at most); its stdout."""
+    t, proc = started
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        proc.kill()  # no-op once it has exited
+    times[name] = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"cli.{name} exited {proc.returncode}: {err[-2000:]}")
+    return out
+
+
+def serve_clis(device: str, workdir: Path) -> dict:
+    """pipeline over examples/corpus and selfindex over the port's package
+    (at once), then search for one page's text: each a subprocess on the
+    default device."""
+    from rag_faiss_embedding_tpu_torch.store import Database
+
+    base, self_base, times = workdir / "cli", workdir / "self", {}
+    package = ROOT / "rag_faiss_embedding_tpu_torch"
+    t = time.perf_counter()
+    pipeline = start_cli(["pipeline", "--base-dir", str(base), "--html-root",
+                          str(ROOT / "examples" / "corpus")], device)
+    selfindex = start_cli(["selfindex", "--base-dir", str(self_base), "--source-dir",
+                           str(package)], device)
+    finish_cli(pipeline, "pipeline", times)
+    entries = json.loads((base / "data" / "documents.json").read_text())
+    pages = sorted((ROOT / "examples" / "corpus").glob("*.html"))
+    db = Database(base / "data" / "documents.db")
+    indexed = db.get_document_count()
+    db.close()
+    if len(entries) != len(pages) or indexed != len(pages):
+        raise AssertionError(f"pipeline indexed {indexed} of {len(pages)} pages")
+    pick = entries[2]
+    out = finish_cli(start_cli(["search", "--base-dir", str(base), pick["content"]], device),
+                     "search", times)
+    rows = out[out.index("\n-") + 1:].splitlines()[1:]  # under the table's rule
+    if not rows or rows[0].split()[1] != pick["title"]:
+        raise AssertionError(f"cli.search did not put {pick['title']} first:\n{out}")
+    finish_cli(selfindex, "selfindex", times)
+    db = Database(self_base / "data" / "documents.db")
+    n_self = db.get_document_count()
+    db.close()
+    n_py = len(list(package.rglob("*.py")))
+    if n_self != n_py:
+        raise AssertionError(f"selfindex stored {n_self} documents for {n_py} .py files")
+    return {"pipeline_documents": indexed, "search_first_title": pick["title"],
+            "selfindex_documents": n_self, "seconds": times,
+            "wall_s": time.perf_counter() - t}
+
+
+def serve_phase(torch, F, U, device: str = "cuda") -> dict:
+    """The port's HTTP server in-process on the card at full MiniLM-L6 width
+    over the slice's 4,096 documents: K1 through the micro-batcher (flat)
+    and K2 (IVF), then the CLIs as subprocesses."""
+    import asyncio
+
+    from rag_faiss_embedding_tpu_torch.core.config import Config
+    from rag_faiss_embedding_tpu_torch.models.generator import AnswerGenerator
+    from rag_faiss_embedding_tpu_torch.rag import QueryEngine, RAGManager
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    docs = corpus_documents(N_DOCS, SEED)
+    _, queries, batch_queries = slice_requests(docs)
+    rng = np.random.default_rng(SEED + 16)
+    texts = queries + batch_queries  # the slice's, then random documents' texts
+    texts += [docs[int(i)]["content"]
+              for i in rng.integers(0, N_DOCS, SERVE_REQUESTS - len(texts))]
+    out = {"phase": "serve"}
+    with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir, \
+            concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+        managers = []
+        for kind in ("flat", "ivf"):
+            cfg = Config(base_dir=Path(workdir) / kind, model_name="chip-smoke-random-init",
+                         index_kind=kind, ivf_nlist=64, serve_max_batch=64,
+                         serve_watchdog_interval_s=0)
+            embedder = managers[0][0].embedder if managers else None
+            manager = RAGManager(config=cfg, embedder=embedder, device=device)
+            if manager.initialize_database(docs) != N_DOCS:
+                raise AssertionError(f"the {kind} manager did not ingest {N_DOCS} documents")
+            engine = QueryEngine(manager.db, manager.vector_store, manager.embedder,
+                                 generator=AnswerGenerator(backend="extractive"))
+            managers.append((manager, engine, cfg))
+        (fm, fe, fcfg), (im, ie, icfg) = managers
+        out["flat"] = asyncio.run(serve_flat(torch, F, fm, fe, fcfg, docs, texts, pool))
+        out["ivf"] = asyncio.run(serve_ivf(torch, U, im, ie, icfg,
+                                           texts[:IVF_SERVE_REQUESTS], pool))
+        for manager, _, _ in managers:
+            manager.cleanup()
+        out["clis"] = serve_clis(device, Path(workdir))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def bf16_encoder_check(torch, embedder, cpu_pipe, texts) -> dict:
     """The encoder's bf16 compute mode at full width on the card, with the
     slice's weights: its embeddings of ``texts`` against the float32 CPU
@@ -1947,6 +2360,8 @@ def main() -> int:
     for trace in pq_traces:
         emit(trace)
     emit(int8_slice_phase(torch))
+    serve = serve_phase(torch, F, U)
+    emit(serve)
     kp = kernel_probe_phase(torch)
     emit(kp)
     emit(bounds_phase(cases, ivf, pq))
@@ -1959,9 +2374,15 @@ def main() -> int:
     v2 = ivf["kernel_cases"][1]
     pq_q1 = pq_sl["pq"]["main_path_kernel_times"]["Q=1"]
     chain = kp["variants"]["chain"]
+    flat_paths = {"slice": sl["flat_scan_launches"],
+                  "serve": serve["flat"]["flat_scan_launches"]
+                  + serve["flat"]["sequential_launches"]}
+    v1_paths = {"ivf_slice": ivf_sl["union_scan_v1_launches"],
+                "serve": serve["ivf"]["union_scan_launches"][1]}
     kernels = [{
         "name": "flat_scan", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": sl["flat_scan_launches"],
+        "replaces": KERNEL_REPLACES, "launches": sum(flat_paths.values()),
+        "paths": flat_paths,
         "max_abs_err": max(max_err, *(v["max_abs_err"]
                                       for v in sl["main_path_kernel_times"].values())),
         "ms": flat_q1["ms"], "plain_ms": flat_q1["plain_ms"],
@@ -1969,7 +2390,8 @@ def main() -> int:
         "library_ms": None,
     }, {
         "name": "union_scan v1", "route": "cuda", "source": UNION_SOURCE,
-        "replaces": UNION_REPLACES[1], "launches": ivf_sl["union_scan_v1_launches"],
+        "replaces": UNION_REPLACES[1], "launches": sum(v1_paths.values()),
+        "paths": v1_paths,
         "max_abs_err": max(union_err[1], ivf_sl["max_abs_err"]),
         "ms": v1["ms"], "plain_ms": v1["plain_ms"],
         **achieved(v1, v1["ms"]),
@@ -2000,7 +2422,8 @@ def main() -> int:
         "variants": {v: {**t, "launches": kp["path_launches"][v]}
                      for v, t in kp["variants"].items()},
     }]
-    if any(e["launches"] <= 0 for e in kernels):
+    if any(e["launches"] <= 0 for e in kernels) or min(flat_paths.values()) <= 0 or \
+            min(v1_paths.values()) <= 0:
         raise AssertionError("a kernel was not launched on its path")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,10 +2,13 @@
 
 The port carries copies of the JAX package's framework-free host modules
 (``core.config``, ``core.logging``, ``store.database``, ``utils.text``,
-``native``). These tests hold each copy to its original on the same inputs,
-and check, by an ``ast`` scan and in a fresh process, that no module of the
-port (nor ``chip_smoke.py``) imports ``jax``, ``flax`` or
-``rag_faiss_embedding_tpu``.
+``utils.timers``, ``native``) and of pieces of its ingest
+(``clean_text``, ``DocumentValidator.validate_document``). These tests hold
+each copy to its original on the same inputs, and check, by an ``ast`` scan
+and in a fresh process, that no module of the port (nor ``chip_smoke.py``)
+imports ``jax``, ``flax`` or ``rag_faiss_embedding_tpu``, nor a host
+library the card's machine lacks (``aiohttp``, ``bs4``, ``rich``,
+``fastapi``).
 """
 
 import ast
@@ -34,6 +37,7 @@ from rag_faiss_embedding_tpu_torch.utils import text as ttext
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "rag_faiss_embedding_tpu_torch"
 FORBIDDEN = ("jax", "flax", "rag_faiss_embedding_tpu")
+MISSING_ON_THE_CARD = ("aiohttp", "bs4", "rich", "fastapi")
 SOURCES = sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
 
 
@@ -49,6 +53,12 @@ def _imported(path: Path):
 @pytest.mark.parametrize("source", SOURCES)
 def test_no_source_imports_the_jax_package(source):
     bad = sorted(set(_imported(REPO / source)) & set(FORBIDDEN))
+    assert not bad, f"{source} imports {bad}"
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_no_source_imports_a_library_the_card_lacks(source):
+    bad = sorted(set(_imported(REPO / source)) & set(MISSING_ON_THE_CARD))
     assert not bad, f"{source} imports {bad}"
 
 
@@ -80,7 +90,8 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
         "modules": len(names), "hits": [h["id"] for h in hits],
         "loaded": sorted(k for k in sys.modules
                          if k.split(".")[0] in ("jax", "flax", "jaxlib",
-                                                "rag_faiss_embedding_tpu")),
+                                                "rag_faiss_embedding_tpu", "aiohttp",
+                                                "bs4", "rich", "fastapi")),
     }))
 """)
 
@@ -165,3 +176,55 @@ def test_native_tokenizers_agree_on_the_corpus():
     ascii_texts = [t for t in texts if t.isascii()]
     for a, b in zip(jtok.encode_batch(ascii_texts, 128), ttok.encode_batch(ascii_texts, 128)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_stage_timers_agree():
+    from rag_faiss_embedding_tpu.utils.timers import StageTimer as JTimer
+    from rag_faiss_embedding_tpu_torch.utils import StageTimer as TTimer
+
+    rng = np.random.default_rng(1)
+    stages = {name: list(rng.exponential(0.01, size=int(rng.integers(1, 300))))
+              for name in ("ingest_html", "batch_search(n=64)", "embed_and_index")}
+    timers = (JTimer(), TTimer())
+    for timer in timers:
+        timer.stages = {k: list(v) for k, v in stages.items()}
+        with timer.stage("live"):
+            pass
+        timer.stages["live"] = [0.25]
+    assert timers[0].summary() == timers[1].summary()
+    assert timers[0].report() == timers[1].report()
+
+
+def test_copied_ingest_pieces_agree():
+    from rag_faiss_embedding_tpu.ingest.html import clean_text as jclean
+    from rag_faiss_embedding_tpu.ingest.validator import DocumentValidator as JValidator
+    from rag_faiss_embedding_tpu_torch.ingest.html import clean_text as tclean
+    from rag_faiss_embedding_tpu_torch.ingest.validator import DocumentValidator as TValidator
+
+    rng = np.random.default_rng(2)
+    words = ["Menu", "nav", "HTML", "header-footer", "vectors", "a.b...c", "--", "[x]",
+             "café", "Title!", "why?", "e.g.", "3.5", "include", "*", "tensor", "cores"]
+    texts = [" ".join(rng.choice(words, size=int(rng.integers(0, 30)))) for _ in range(60)]
+    for t in texts:
+        assert tclean(t) == jclean(t)
+    docs = [{"url": rng.choice(["example.com/a", "https://b.example/x", " http://c ", ""]),
+             "title": " ".join(rng.choice(words, size=3)),
+             "content": t} for t in texts] + [{}, {"url": "u"}, {"title": "t", "content": "c"}]
+    jv, tv = JValidator(), TValidator()
+    for doc in docs:
+        assert tv.validate_document(doc) == jv.validate_document(doc)
+
+
+def test_device_trace_writes_a_chrome_trace(tmp_path):
+    """``utils.profiling`` (torch.profiler in place of jax.profiler): the
+    trace of a block lands in ``log_dir`` and holds its annotated region."""
+    import torch
+
+    from rag_faiss_embedding_tpu_torch.utils.profiling import annotate, device_trace
+
+    with device_trace(tmp_path / "trace"):
+        with annotate("port-region"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    [trace] = (tmp_path / "trace").glob("trace-*.json")
+    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert "port-region" in names
