@@ -131,10 +131,47 @@ Phases, one JSON object per line:
     first), each a subprocess on the card. HTTP latency p50 / p99 on the host
     clock, the batch sizes and the launches.
 
+16. chunked (after phase 13, on phase 6's coarse quantizer): the JAX
+    record's 10M shape, ``IVFFlatIndex(384, nlist=16384, nprobe=16,
+    pq_m=48, train_iters=10, rerank=True, refine_dtype="bfloat16",
+    rerank_depth=128, balance="spill")`` built by ``build_chunked`` over
+    10,485,760 rows of bench.py's distribution in chunks of 524,288, the
+    rows made on the card as a pure function of (start, size): the build's
+    stages, window, spill rows, the device's peak memory by stage against
+    the resident bytes and a working-set bound set by the chunk and the
+    score tile (not by n), host memory; the exact float32 top-10 of 1,024
+    queries streamed through the flat-scan kernel; searches at nprobe 8, 16
+    and 32, Q 1 and 1,024 (recall@10 and @1 as information, CUDA-event
+    ms), the decode kernel bit for bit against the plain decode. Then three
+    chunked builds at 1M on phase 6's rows: IVF-PQ ``balance="spill"``
+    pinned to a dense build's training (the same slots, codes differing only
+    at near-tie codewords), ``balance="reassign"`` at cap_factor 1.3 (every
+    row placed or pending, window within the cap, spilled rows find
+    themselves), and bf16 storage through the union-scan kernel (recall@10
+    >= RECALL_MIN, kernel vs plain as phase 6 holds them).
+17. train: full-width MiniLM-L6 with a vocabulary trained on the slice's
+    documents (8,192): one step from the same parameters and first batch
+    (32 x 128) on the card and the CPU (loss within 1e-4 relative, each
+    gradient within 1e-4 of its tensor's largest entry (at least 1e-2 of the
+    model's largest), every weight within
+    lr / 100 but where the gradient is below 1e-6 (the attention key
+    biases, whose exact gradient is zero, among them): there within 1.01 x
+    lr of its start); ``cli.train.train``
+    at the CLI's defaults (200 steps, batch 32, max_len 128, lr 2e-5) with a
+    checkpoint and exported params: ms per step, sequences and tokens per
+    second, peak device memory, the loss falling; two more steps from the
+    restored checkpoint equal to two from memory, bit for bit (both under
+    torch's deterministic algorithms: the default kernels are not
+    bit-reproducible from run to run); then
+    ``cli.train`` as a subprocess (20 steps) and a ``RAGManager`` on what it
+    wrote, indexing the slice's documents and serving its requests through
+    the flat-scan kernel.
+
 Then a ``{"kernels": [...]}`` line (launch counts from each kernel's path,
-with a ``paths`` breakdown: the flat scan's from the slice and the server,
-union-scan variant 1's from the IVF slice and the IVF server,
-variant 2's from the IVF kernel phase, the PQ decode's from the PQ slice,
+with a ``paths`` breakdown: the flat scan's from the slice, the server, the
+10M ground truth and the trained manager, union-scan variant 1's from the
+IVF slice, the IVF server and the chunked bf16 build, variant 2's from the
+IVF kernel phase, the PQ decode's from the PQ slice and the 10M searches,
 K5's from the prototype search, K6's from the probe's run; each with its
 bound at the path's shape, its achieved TFLOP/s and share of that bound,
 and the one-call library time where one exists)
@@ -147,6 +184,7 @@ package is not beside it.
 
 import concurrent.futures
 import dataclasses
+import hashlib
 import html
 import json
 import re
@@ -179,7 +217,7 @@ KP_REPLACES = "benchmarks/pallas_kernel_probe.py:57"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # top-level packages the port must never load
-FORBIDDEN_MODULES = ("jax", "flax", "rag_faiss_embedding_tpu")
+FORBIDDEN_MODULES = ("jax", "flax", "optax", "orbax", "rag_faiss_embedding_tpu")
 N_DOCS = 4096
 SEED = 0
 # Tolerances of kernel vs plain: both accumulate in float32 in different
@@ -1971,6 +2009,565 @@ def bf16_encoder_check(torch, embedder, cpu_pipe, texts) -> dict:
                                for r in (1, 16, 32)}}
 
 
+# ----------------------------------------------------------------- phase 16
+# the JAX record's 10M IVF-PQ shape with refine (benchmarks/scale10m.py)
+CHUNKED_N, CHUNKED_CHUNK, CHUNKED_NLIST, CHUNKED_M = 10 * (1 << 20), 1 << 19, 16384, 48
+CHUNKED_NPROBES = (8, 16, 32)
+ASSIGN_POINT_CHUNK = 65536  # ops/kmeans.assign's score-tile rows
+
+
+def chunk_source(torch):
+    """bench.py's distribution (8,192 Gaussian modes, row = mode + 0.7
+    noise) as a pure function of (start, size), made on the card: the same
+    arguments give the same rows, so the corpus is stored nowhere."""
+    cuda = torch.device("cuda")
+    centers = torch.randn(IVF_MODES, IVF_DIM, device=cuda,
+                          generator=torch.Generator(device="cuda").manual_seed(SEED))
+    gen = torch.Generator(device="cuda")
+
+    def source(start: int, size: int):
+        # a 32-bit seed per (start, size): the CPU generator keeps 32 bits
+        gen.manual_seed(int.from_bytes(hashlib.blake2b(
+            f"{SEED}:{start}:{size}".encode(), digest_size=4).digest(), "little"))
+        mode = torch.randint(0, IVF_MODES, (size,), generator=gen, device=cuda)
+        rows = torch.randn(size, IVF_DIM, generator=gen, device=cuda).mul_(0.7)
+        return rows.add_(centers[mode])
+
+    return source
+
+
+class PeakBySourceCall:
+    """A ``source`` that records its calls and the device's peak memory in
+    the window after each call (the work on what it returned), so the
+    build's peak splits by stage."""
+
+    def __init__(self, torch, source):
+        self.torch, self.source, self.calls, self.peaks = torch, source, [], []
+
+    def __call__(self, start, size):
+        self.close()
+        self.calls.append((start, size))
+        return self.source(start, size)
+
+    def close(self):
+        if self.calls:
+            self.peaks.append(self.torch.cuda.max_memory_allocated())
+        self.torch.cuda.reset_peak_memory_stats()
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def resident_bytes(idx) -> dict:
+    """Device bytes a built IVF index holds, by part."""
+    p = idx._pending
+    return {
+        "codes": tensor_bytes(idx._sorted_vecs, idx._sorted_scales),
+        "norms_ids_map": tensor_bytes(idx._sorted_sq, idx._sorted_ids, idx._shadow_pos,
+                                      idx._offsets, idx._lengths),
+        "shadow": tensor_bytes(idx._sorted_shadow, idx._sorted_shadow_scales,
+                               idx._sorted_shadow_sq),
+        "pending": tensor_bytes(p._buf, p._sq, p._scales),
+        "quantizers": tensor_bytes(idx.centroids, idx._cent_store, idx._cent_sq,
+                                   idx.pq_codebooks, idx._assign_bias),
+    }
+
+
+def host_rss_bytes() -> int:
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024
+    return -1
+
+
+def streamed_truth(torch, F, source, queries, n: int, chunk: int, k: int = 10):
+    """The exact float32 top-k of ``queries`` over ``source``'s rows,
+    streamed chunk by chunk through the flat-scan kernel and merged."""
+    from rag_faiss_embedding_tpu_torch.ops.distance import sqnorms
+
+    best_v = torch.full((queries.shape[0], k), float("inf"), device=queries.device)
+    best_i = torch.full((queries.shape[0], k), -1, dtype=torch.long, device=queries.device)
+    for start in range(0, n, chunk):
+        rows = source(start, min(chunk, n - start))
+        v, i = F.flat_search(queries, rows, k, db_sq=sqnorms(rows))
+        cat_v, cat_i = torch.cat([best_v, v], 1), torch.cat([best_i, i.long() + start], 1)
+        best_v, pos = torch.topk(cat_v, k, dim=1, largest=False, sorted=True)
+        best_i = torch.gather(cat_i, 1, pos)
+    return best_v, best_i
+
+
+def code_near_ties(torch, idx, other_codes, source_rows) -> dict:
+    """Codes of ``idx`` that differ from ``other_codes`` on live slots, each
+    checked to be a near tie: its two codewords' float64 distances to the
+    row's residual sub-vector agree within 1e-5 of the terms they sum."""
+    live = idx._sorted_ids >= 0
+    differ = (idx._sorted_vecs != other_codes) & live[:, None]
+    slots, subs = torch.nonzero(differ, as_tuple=True)
+    worst = 0.0
+    if slots.numel():
+        rows = source_rows[idx._sorted_ids[slots].long()].double()
+        lists = (slots // idx._window).long()
+        dsub = idx.dim // idx.pq_m
+        resid = (rows - idx.centroids[lists].double()).view(-1, idx.pq_m, dsub)
+        r = resid[torch.arange(len(subs), device=slots.device), subs]
+        cb = idx.pq_codebooks.double()
+        ca = cb[subs, idx._sorted_vecs[slots, subs].long()]
+        cb_ = cb[subs, other_codes[slots, subs].long()]
+        da, db = ((r - ca) ** 2).sum(-1), ((r - cb_) ** 2).sum(-1)
+        scale = (r ** 2).sum(-1) + torch.maximum((ca ** 2).sum(-1), (cb_ ** 2).sum(-1))
+        worst = float(((da - db).abs() / scale).max())
+        if worst > 1e-5:
+            raise AssertionError(f"a chunked-built code differs from the dense build's "
+                                 f"away from a tie ({worst})")
+    return {"codes_differing": int(slots.numel()), "codes_live": int(live.sum()) * idx.pq_m,
+            "worst_tie_gap_rel": worst}
+
+
+def one_m_builds(torch, U, coarse) -> dict:
+    """Three chunked builds at 1M on phase 6's rows (chunks of 524,288): IVF-PQ
+    with ``balance="spill"`` pinned to a dense build's training, slot for slot
+    against it; ``balance="reassign"`` at cap_factor 1.3; dense bf16 storage
+    on phase 6's centroids through the union-scan kernel."""
+    from rag_faiss_embedding_tpu_torch.benchmarks.fused_proto import recall_at
+    from rag_faiss_embedding_tpu_torch.index import FlatIndex, IVFFlatIndex
+    from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
+
+    cuda = torch.device("cuda")
+    db, queries = bench_rows(torch)
+    flat = FlatIndex(IVF_DIM, capacity=IVF_N, device=cuda)
+    flat.add(db)
+    _, truth = flat.search(queries, 10)
+    del flat
+    src = lambda s, z: db[s:s + z]
+    pq_kw = dict(nlist=IVF_NLIST, pq_m=CHUNKED_M, train_iters=10, device=cuda)
+    out = {}
+
+    def pinned(idx, centroids):
+        idx.centroids, idx.is_trained = centroids, True
+        return idx
+
+    # spill: the chunked build equals a dense build with the same training
+    t0 = time.perf_counter()
+    dense = pinned(IVFFlatIndex(IVF_DIM, balance="spill", **pq_kw), coarse)
+    dense.build(db)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    chunked = pinned(IVFFlatIndex(IVF_DIM, balance="spill", **pq_kw), coarse)
+    chunked.pq_codebooks = dense.pq_codebooks
+    t0 = time.perf_counter()
+    chunked.build_chunked(src, n=IVF_N, chunk_size=CHUNKED_CHUNK)
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    if (chunked._window, chunked._n_spill) != (dense._window, dense._n_spill) or \
+            not torch.equal(chunked._sorted_ids, dense._sorted_ids):
+        raise AssertionError("the chunked spill build's slots differ from the dense build's")
+    ties = code_near_ties(torch, chunked, dense._sorted_vecs, db)
+    a, b = dense.search(queries, 10, nprobe=16), chunked.search(queries, 10, nprobe=16)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("the chunked and dense builds search differently")
+    out["spill_vs_dense"] = {"dense_build_s": dense_s, "chunked_build_s": chunked_s,
+                             "window": chunked._window, "spill_rows": chunked._n_spill,
+                             "searches_identical": True, **ties,
+                             "build_stats": chunked.build_stats}
+    codebooks = dense.pq_codebooks
+    del dense, chunked
+
+    # reassign at the 100M setting's cap
+    ra = pinned(IVFFlatIndex(IVF_DIM, balance="reassign", **pq_kw), coarse)
+    ra.pq_codebooks, ra.cap_factor = codebooks, 1.3
+    t0 = time.perf_counter()
+    ra.build_chunked(src, n=IVF_N, chunk_size=CHUNKED_CHUNK)
+    torch.cuda.synchronize()
+    ra_s = time.perf_counter() - t0
+    cap = ra._reassign_cap(IVF_N / IVF_NLIST)
+    built_ids = ra._sorted_ids[ra._sorted_ids >= 0]
+    placed = torch.zeros(IVF_N, dtype=torch.bool, device=cuda)
+    placed[built_ids.long()] = True
+    pend = torch.as_tensor(ra._pending_rowids, device=cuda).long()
+    if ra.ntotal != IVF_N or ra._window > cap or built_ids.numel() + pend.numel() != IVF_N \
+            or bool(placed[pend].any()) or ra._pending.ntotal != ra._n_spill:
+        raise AssertionError(f"reassign build: ntotal {ra.ntotal}, window {ra._window} "
+                             f"(cap {cap}), {ra._n_spill} spilled")
+    self_hit = None
+    if pend.numel():
+        _, got = ra.search(db[pend[:256]], 1)
+        self_hit = float((got[:, 0].long() == pend[:256]).float().mean())
+        if self_hit < 1.0:
+            raise AssertionError(f"spilled rows found themselves {self_hit}")
+    out["reassign"] = {"build_s": ra_s, "cap_factor": 1.3, "cap": cap, "window": ra._window,
+                       "spill_rows": ra._n_spill, "spilled_self_query_top1": self_hit,
+                       "recall@10_q1024_nprobe16": recall_at(
+                           ra.search(queries, 10, nprobe=16)[1], truth),
+                       "build_stats": ra.build_stats}
+    del ra
+
+    # dense bf16 storage through the union-scan kernel
+    bf = pinned(IVFFlatIndex(IVF_DIM, nlist=IVF_NLIST, dtype="bfloat16", balance="spill",
+                             train_iters=10, device=cuda), coarse)
+    t0 = time.perf_counter()
+    bf.build_chunked(src, n=IVF_N, chunk_size=CHUNKED_CHUNK)
+    torch.cuda.synchronize()
+    bf_s = time.perf_counter() - t0
+    U.union_scan.launches = 0  # the path's launches
+    U.union_scan.variant_launches = {1: 0, 2: 0}
+    _, ids = bf.search(queries, 10, nprobe=16)
+    torch.cuda.synchronize()
+    launches = U.union_scan.variant_launches[1]
+    bf.backend = "xla"
+    _, plain_ids = bf.search(queries, 10, nprobe=16)
+    bf.backend = "auto"
+    rec, plain_rec = recall_at(ids, truth), recall_at(plain_ids, truth)
+    if launches <= 0 or rec < RECALL_MIN or rec < plain_rec - RECALL_SLACK:
+        raise AssertionError(f"chunked bf16: {launches} launches, recall@10 {rec} "
+                             f"(plain {plain_rec})")
+    args, disp = union_args(S, bf, queries, 10, 1, 16)
+    err, mism = union_check(torch, U, bf, args, 10)
+    out["bf16"] = {"build_s": bf_s, "window": bf._window, "spill_rows": bf._n_spill,
+                   "recall@10_q1024_nprobe16": rec, "plain_recall@10": plain_rec,
+                   "union_scan_v1_launches": launches, "max_abs_err": err,
+                   "id_mismatch": mism, "ms": cuda_ms(torch, lambda: bf.search(queries, 10,
+                                                                               nprobe=16), 5),
+                   "build_stats": bf.build_stats}
+    del bf, db
+    torch.cuda.empty_cache()
+    return out
+
+
+def chunked_phase(torch, F, U, PD, coarse) -> dict:
+    """The 10M IVF-PQ chunked build (refine bf16), its memory, recall and
+    searches; then the three 1M builds."""
+    import resource
+
+    from rag_faiss_embedding_tpu_torch.benchmarks.fused_proto import recall_at
+    from rag_faiss_embedding_tpu_torch.index import IVFFlatIndex
+
+    cuda = torch.device("cuda")
+    source = chunk_source(torch)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    base = source(0, CHUNKED_CHUNK)  # queries: corpus rows + 0.3 noise, as bench.py
+    queries = base[torch.randint(0, CHUNKED_CHUNK, (IVF_Q,), generator=g, device=cuda)]
+    queries += 0.3 * torch.randn(IVF_Q, IVF_DIM, generator=g, device=cuda)
+    del base
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    idx = IVFFlatIndex(IVF_DIM, nlist=CHUNKED_NLIST, nprobe=16, pq_m=CHUNKED_M,
+                       train_iters=10, rerank=True, refine_dtype="bfloat16",
+                       rerank_depth=128, balance="spill", device=cuda)
+    tracked = PeakBySourceCall(torch, source)
+    before = torch.cuda.memory_allocated()
+    rss_before = host_rss_bytes()
+    t0 = time.perf_counter()
+    tracked.close()  # peak window from here
+    idx.build_chunked(tracked, n=CHUNKED_N, chunk_size=CHUNKED_CHUNK)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tracked.close()
+    n_chunks = -(-CHUNKED_N // CHUNKED_CHUNK)
+    stages = ["train"] * n_chunks + ["assign"] * n_chunks + ["pq_train"] + \
+        ["encode"] * n_chunks + ["shadow"] * n_chunks
+    expected = [(s, min(CHUNKED_CHUNK, CHUNKED_N - s))
+                for s in range(0, CHUNKED_N, CHUNKED_CHUNK)]
+    if len(tracked.calls) != len(stages) or tracked.calls[n_chunks:2 * n_chunks] != expected:
+        raise AssertionError(f"unexpected source calls: {tracked.calls[:4]}...")
+    peak_by_stage = {}
+    for stage, peak in zip(stages, tracked.peaks):
+        peak_by_stage[stage] = max(peak_by_stage.get(stage, 0), peak - before)
+    peak = max(peak_by_stage.values())
+    resident = resident_bytes(idx)
+    working = peak - sum(resident.values())
+    # what the build's transients can hold, from chunk_size and the score
+    # tile, not n: four (point_chunk, nlist) float32 tiles, four float32
+    # chunks, two copies of the training sample (64 rows per list)
+    tile = ASSIGN_POINT_CHUNK * CHUNKED_NLIST * 4
+    chunk_bytes = CHUNKED_CHUNK * IVF_DIM * 4
+    sample = idx.train_sample_per_list * CHUNKED_NLIST * IVF_DIM * 4
+    bound = 4 * tile + 4 * chunk_bytes + 2 * sample
+    memory = {"peak_bytes": peak, "peak_by_stage_bytes": peak_by_stage,
+              "resident_bytes": resident, "working_set_bytes": working,
+              "working_set_bound_bytes": bound,
+              "bound_terms": {"score_tile": tile, "chunk_f32": chunk_bytes,
+                              "train_sample_f32": sample},
+              "dense_build_corpus_f32_bytes": CHUNKED_N * IVF_DIM * 4,
+              "host_rss_before_bytes": rss_before, "host_rss_after_bytes": host_rss_bytes(),
+              "host_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+
+    F.flat_search.launches = 0  # the ground truth's launches
+    _, truth = streamed_truth(torch, F, source, queries, CHUNKED_N, CHUNKED_CHUNK)
+    torch.cuda.synchronize()
+    truth_launches = F.flat_search.launches
+
+    single = queries[:64]
+    PD.decode.launches = 0  # the searches' launches
+    searches = []
+    for nprobe in CHUNKED_NPROBES:
+        v, ids = idx.search(queries, 10, nprobe=nprobe)
+        ids1 = torch.cat([idx.search(single[i:i + 1], 10, nprobe=nprobe)[1]
+                          for i in range(len(single))])
+        searches.append({
+            "nprobe": nprobe,
+            "recall@10_q1024": recall_at(ids, truth), "recall@1_q1024": float(
+                (ids[:, 0].long() == truth[:, 0]).float().mean()),
+            "recall@10_q1": recall_at(ids1, truth[:64]), "recall@1_q1": float(
+                (ids1[:, 0].long() == truth[:64, 0]).float().mean()),
+            "ms_q1": cuda_ms(torch, lambda: idx.search(single[:1], 10, nprobe=nprobe)),
+            "ms_q1024": cuda_ms(torch, lambda: idx.search(queries, 10, nprobe=nprobe), 5, 1),
+        })
+        if not (bool((ids >= 0).all()) and bool(torch.isfinite(v).all())):
+            raise AssertionError(f"a 10M search at nprobe {nprobe} returned missing slots")
+    torch.cuda.synchronize()
+    k4_launches = PD.decode.launches
+    kernel_out = idx.search(queries, 10, nprobe=16)
+    idx.backend = "xla"
+    plain_out = idx.search(queries, 10, nprobe=16)
+    idx.backend = "auto"
+    if not all(torch.equal(a, b) for a, b in zip(kernel_out, plain_out)):
+        raise AssertionError("10M: the decode kernel and the plain decode disagree")
+    result = {"phase": "chunked", "N": CHUNKED_N, "D": IVF_DIM, "nlist": CHUNKED_NLIST,
+              "pq_m": CHUNKED_M, "chunk_size": CHUNKED_CHUNK, "refine_dtype": "bfloat16",
+              "rerank_depth": idx.rerank_depth, "balance": "spill", "build_s": build_s,
+              "build_stats": {k: v for k, v in idx.build_stats.items() if k != "train"},
+              "train_stats": idx.build_stats.get("train"), "window": idx._window,
+              "spill_rows": idx._n_spill, "memory": memory, "searches": searches,
+              "kernel_equals_plain_decode_q1024_nprobe16": True,
+              "path_launches": {"flat_scan": truth_launches, "pq_decode": k4_launches}}
+    del idx, kernel_out, plain_out, truth
+    torch.cuda.empty_cache()
+    if working > bound:
+        emit(result)
+        raise AssertionError(f"chunked build working set {working} B over its bound {bound} B")
+    result["builds_1m"] = one_m_builds(torch, U, coarse)
+    result["path_launches"]["union_scan_v1"] = result["builds_1m"]["bf16"][
+        "union_scan_v1_launches"]
+    if min(result["path_launches"].values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {result['path_launches']}")
+    return result
+
+
+# ----------------------------------------------------------------- phase 17
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LEN, TRAIN_LR, TRAIN_VOCAB = 200, 32, 128, 2e-5, 8192
+CLI_TRAIN_STEPS = 20
+GRAD_FLOOR = 1e-6  # 100 x AdamW's eps
+
+
+def one_step_card_vs_cpu(torch, T, cfg, params, batch) -> dict:
+    """One training step from the same parameters and batch on the card and
+    on the CPU. The loss within 1e-4 relative; each gradient tensor (read
+    back from AdamW's first moment, 0.1 x g after one step) within 1e-4 of
+    its largest entry, or of 1e-2 x the model's largest where that is more
+    (a tensor whose exact gradient is zero holds the rounding of terms that
+    cancel); every weight within lr / 100, but where a gradient
+    is below GRAD_FLOOR (100 x Adam's eps) on either device: Adam's first
+    step is lr x g / (|g| + eps), so there float32 rounding in g (the
+    attention key biases' whole gradient: a softmax does not see a shift
+    common to a query's logits) moves the weight by up to lr. Those are
+    held to 1.01 x lr of their start on both devices, and counted."""
+    from rag_faiss_embedding_tpu_torch.models.convert import load_flax_params
+
+    start = load_flax_params(params)
+    out = []
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        run, state = T.make_train_step(cfg, learning_rate=TRAIN_LR, params=params, device=dev)
+        t0 = time.perf_counter()
+        state, m = run(state, batch)
+        loss = float(m["loss"])
+        opt = state.opt_state.state
+        out.append((loss, time.perf_counter() - t0,
+                    {k: p.detach().cpu() for k, p in state.params.named_parameters()},
+                    {k: (opt[p]["exp_avg"] / 0.1).cpu()
+                     for k, p in state.params.named_parameters()}))
+    (l_cpu, s_cpu, w_cpu, g_cpu), (l_card, s_card, w_card, g_card) = out
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst = {"grad_rel": (0.0, None), "weight": (0.0, None), "noise_move": (0.0, None)}
+    n_noise = 0
+    g_model = max(float(g.abs().max()) for g in g_cpu.values())
+    for name in w_cpu:
+        # a tensor's own largest entry, or the rounding of the model's
+        # largest gradient terms where they cancel (the key biases)
+        scale = max(float(g_cpu[name].abs().max()), 1e-2 * g_model)
+        g_err = float((g_card[name] - g_cpu[name]).abs().max()) / scale
+        noise = torch.minimum(g_card[name].abs(), g_cpu[name].abs()) < GRAD_FLOOR
+        n_noise += int(noise.sum())
+        w_err = (w_card[name] - w_cpu[name]).abs()
+        move = max(float((w - start[name]).abs()[noise].max()) if noise.any() else 0.0
+                   for w in (w_card[name], w_cpu[name]))
+        w_err = float(w_err[~noise].max()) if (~noise).any() else 0.0
+        for key, val in (("grad_rel", g_err), ("weight", w_err), ("noise_move", move)):
+            if val > worst[key][0]:
+                worst[key] = (val, name)
+    if rel > 1e-4 or worst["grad_rel"][0] > 1e-4 or worst["weight"][0] > TRAIN_LR / 100 \
+            or worst["noise_move"][0] > 1.01 * TRAIN_LR:
+        raise AssertionError(f"card vs CPU step: loss rel {rel}, worst {worst}")
+    return {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel_diff": rel,
+            "grad_max_rel_diff": worst["grad_rel"], "weight_max_abs_diff": worst["weight"],
+            "weight_bound": TRAIN_LR / 100, "grad_floor": GRAD_FLOOR,
+            "weights_below_grad_floor": n_noise,
+            "weights": sum(w.numel() for w in w_cpu.values()),
+            "below_floor_max_move": worst["noise_move"], "below_floor_bound": 1.01 * TRAIN_LR,
+            "step_s_card_first": s_card, "step_s_cpu": s_cpu}
+
+
+def train_phase(torch, F, workdir: Path) -> dict:
+    """Full-width MiniLM-L6 training on the card: one step against the CPU,
+    ``cli.train.train`` for 200 steps with a checkpoint, a resume from it
+    equal bit for bit to training on, then ``cli.train`` as a subprocess and
+    a ``RAGManager`` serving the slice's requests with what it wrote."""
+    import itertools
+
+    import numpy as np
+
+    from rag_faiss_embedding_tpu_torch.cli import train as cli_train
+    from rag_faiss_embedding_tpu_torch.core.config import Config
+    from rag_faiss_embedding_tpu_torch.models.convert import deterministic_params, import_params
+    from rag_faiss_embedding_tpu_torch.models.minilm import MiniLMConfig
+    from rag_faiss_embedding_tpu_torch.models.generator import AnswerGenerator
+    from rag_faiss_embedding_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from rag_faiss_embedding_tpu_torch.parallel import train as T
+    from rag_faiss_embedding_tpu_torch.parallel.checkpoint import TrainCheckpointer
+    from rag_faiss_embedding_tpu_torch.rag import QueryEngine, RAGManager
+
+    cuda = torch.device("cuda")
+    docs = corpus_documents(N_DOCS, SEED)
+    pairs = cli_train.make_pairs(docs, np.random.default_rng(SEED))
+    t0 = time.perf_counter()
+    tokenizer = WordPieceTokenizer.train([p[0] for p in pairs] + [p[1] for p in pairs],
+                                         vocab_size=TRAIN_VOCAB)
+    vocab_s = time.perf_counter() - t0
+    cfg = MiniLMConfig(vocab_size=tokenizer.vocab_size)
+    batch = next(cli_train.batch_iterator(pairs, tokenizer, TRAIN_BATCH, TRAIN_LEN, SEED))
+    step_check = one_step_card_vs_cpu(torch, T, cfg, deterministic_params(cfg), batch)
+
+    # cli.train.train at the CLI's defaults, each step timed by CUDA events
+    record = {"events": [], "loss": [], "state": None}
+    make = T.make_train_step
+
+    def timed_make_train_step(*args, **kwargs):
+        run, state = make(*args, **kwargs)
+
+        def run_timed(state, b):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = run(state, b)
+            end.record()
+            record["events"].append((start, end))
+            record["loss"].append(m["loss"])
+            record["state"] = state
+            return state, m
+
+        return run_timed, state
+
+    ckpt_dir, params_out = workdir / "ckpt", workdir / "trained" / "encoder_params.npz"
+    T.make_train_step = timed_make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        _, tok = cli_train.train(docs, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                                 max_len=TRAIN_LEN, learning_rate=TRAIN_LR,
+                                 vocab_size=TRAIN_VOCAB, checkpoint_dir=ckpt_dir,
+                                 params_out=params_out, device=cuda)
+    finally:
+        T.make_train_step = make
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in record["events"]]
+    losses = [float(x) for x in record["loss"]]
+    ms = statistics.median(step_ms[10:])
+    first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"training did not learn: first 20 {first}, last 20 {last}")
+
+    # resume from the checkpoint: two more steps equal to two from memory
+    ckpt = TrainCheckpointer(ckpt_dir)
+    tcfg = MiniLMConfig(vocab_size=max(tok.vocab_size, 128))
+    run, fresh = T.make_train_step(tcfg, learning_rate=TRAIN_LR, device=cuda)
+    restored = ckpt.restore(fresh)
+    live = record["state"]
+    more = list(itertools.islice(cli_train.batch_iterator(pairs, tok, TRAIN_BATCH, TRAIN_LEN,
+                                                          SEED + 1), 2))
+    # the card's default kernels are not bit-reproducible from run to run
+    # (``rerun_default_max_abs_diff``: the same two steps from the checkpoint
+    # twice), so the four compared steps take torch's deterministic
+    # algorithms: the check is on what the checkpoint holds
+    reruns = []
+    for _ in range(2):
+        run_again, again = T.make_train_step(tcfg, learning_rate=TRAIN_LR, device=cuda)
+        again = ckpt.restore(again)
+        for b in more:
+            again, _ = run_again(again, b)
+        reruns.append(again.params.state_dict())
+    rerun_diff = max(float((reruns[0][k] - reruns[1][k]).abs().max()) for k in reruns[0])
+    del reruns, again
+    det = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    l_live, l_restored = [], []
+    try:
+        for b in more:
+            live, m = run(live, b)
+            l_live.append(float(m["loss"]))
+        for b in more:
+            restored, m = run(restored, b)
+            l_restored.append(float(m["loss"]))
+    finally:
+        torch.use_deterministic_algorithms(det[0], warn_only=det[1])
+    a, b = live.params.state_dict(), restored.params.state_dict()
+    differ = {k: float((a[k] - b[k]).abs().max()) for k in a if not torch.equal(a[k], b[k])}
+    exact = l_live == l_restored and restored.step == live.step == TRAIN_STEPS + 2 and \
+        not differ
+    if ckpt.latest_step() != TRAIN_STEPS or not exact:
+        raise AssertionError(f"resume differs from training on: losses {l_live} vs "
+                             f"{l_restored}, steps {live.step} / {restored.step}, "
+                             f"weights {differ}")
+    saved = import_params(params_out)
+    if saved["embeddings"]["word_embeddings"]["embedding"].shape != (tcfg.vocab_size, 384):
+        raise AssertionError("the exported params do not match the trained config")
+    del live, restored, fresh, record
+    torch.cuda.empty_cache()
+
+    # the CLI as a user runs it, then a manager serving with what it wrote
+    base = workdir / "cli"
+    base.mkdir()
+    (base / "documents.json").write_text(json.dumps(docs))
+    times = {}
+    finish_cli(start_cli(["train", "--base-dir", str(base), "--documents",
+                          str(base / "documents.json"), "--steps", str(CLI_TRAIN_STEPS)],
+                         "cuda"), "train", times)
+    cfg_w = Config(base_dir=base)
+    F.flat_search.launches = 0  # the served requests' launches
+    manager = RAGManager(config=cfg_w, device=cuda)
+    n = manager.initialize_database(docs)
+    engine = QueryEngine(manager.db, manager.vector_store, manager.embedder,
+                         generator=AnswerGenerator(backend="extractive"))
+    picks, queries, batch_queries = slice_requests(docs)
+    singles = [engine.search(text, top_k=5) for text in queries]
+    batch_hits = engine.search_batch(batch_queries, top_k=5)
+    torch.cuda.synchronize()
+    launches = F.flat_search.launches
+    trained = import_params(cfg_w.data_dir / "encoder_params.npz")
+    loaded = manager.embedder.model.embeddings.word_embeddings.weight.detach().cpu().numpy()
+    if n != N_DOCS or launches < len(queries) + 1 or not all(singles + batch_hits) or \
+            not np.array_equal(loaded, trained["embeddings"]["word_embeddings"]["embedding"]):
+        raise AssertionError(f"trained manager: {n} documents, {launches} launches")
+    self_hits = sum(h[0]["url"] == docs[i]["url"] for h, i in zip(singles, picks))
+    manager.cleanup()
+    return {"phase": "train", "encoder": dataclasses.asdict(tcfg), "vocab_train_s": vocab_s,
+            "one_step_card_vs_cpu": step_check,
+            "train": {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "max_len": TRAIN_LEN,
+                      "lr": TRAIN_LR, "wall_s": train_s, "ms_per_step_median": ms,
+                      "ms_per_step_first": step_ms[0],
+                      "sequences_per_s": 2 * TRAIN_BATCH / ms * 1e3,
+                      "tokens_per_s": 2 * TRAIN_BATCH * TRAIN_LEN / ms * 1e3,
+                      "peak_device_bytes": peak, "loss_first20_mean": first,
+                      "loss_last20_mean": last, "loss_every_10": losses[::10]},
+            "resume_bit_exact": exact, "resume_losses": l_restored,
+            "rerun_default_max_abs_diff": rerun_diff,
+            "cli": {"seconds": times["train"], "steps": CLI_TRAIN_STEPS, "documents": n,
+                    "self_retrieval": f"{self_hits}/8", "flat_scan_launches": launches},
+            "path_launches": {"flat_scan": launches}}
+
+
 # ----------------------------------------------------------------- phase 10
 def bound(bytes_moved: float, flops: float, dtype: str):
     """The least time the card could take for the work, in ms, and what
@@ -2347,8 +2944,11 @@ def main() -> int:
     emit(ivf)
     i8 = int8_phase(torch, F, built[0])  # on the bf16 build's coarse quantizer
     emit(i8)
+    coarse = built[0].centroids.clone()
     del built
     torch.cuda.empty_cache()
+    chunked = chunked_phase(torch, F, U, PD, coarse)
+    emit(chunked)
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir:
         ivf_trace, ivf_sl = ivf_slice_phase(torch, Path(workdir))
     emit(ivf_sl)
@@ -2362,6 +2962,9 @@ def main() -> int:
     emit(int8_slice_phase(torch))
     serve = serve_phase(torch, F, U)
     emit(serve)
+    with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir:
+        train = train_phase(torch, F, Path(workdir))
+    emit(train)
     kp = kernel_probe_phase(torch)
     emit(kp)
     emit(bounds_phase(cases, ivf, pq))
@@ -2376,9 +2979,14 @@ def main() -> int:
     chain = kp["variants"]["chain"]
     flat_paths = {"slice": sl["flat_scan_launches"],
                   "serve": serve["flat"]["flat_scan_launches"]
-                  + serve["flat"]["sequential_launches"]}
+                  + serve["flat"]["sequential_launches"],
+                  "chunked_truth": chunked["path_launches"]["flat_scan"],
+                  "train": train["path_launches"]["flat_scan"]}
     v1_paths = {"ivf_slice": ivf_sl["union_scan_v1_launches"],
-                "serve": serve["ivf"]["union_scan_launches"][1]}
+                "serve": serve["ivf"]["union_scan_launches"][1],
+                "chunked_bf16": chunked["path_launches"]["union_scan_v1"]}
+    pq_paths = {"pq_slice": pq_sl["pq_decode_launches"],
+                "chunked": chunked["path_launches"]["pq_decode"]}
     kernels = [{
         "name": "flat_scan", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": sum(flat_paths.values()),
@@ -2404,7 +3012,7 @@ def main() -> int:
         "library_ms": None,
     }, {
         "name": "pq_decode", "route": "cuda", "source": PQ_SOURCE,
-        "replaces": PQ_REPLACES, "launches": pq_sl["pq_decode_launches"],
+        "replaces": PQ_REPLACES, "launches": sum(pq_paths.values()), "paths": pq_paths,
         "max_abs_err": max(pq_err, *(pq_sl[k]["max_abs_err"] for k in ("pq", "ivf_pq"))),
         "ms": pq_q1["ms"], "plain_ms": pq_q1["plain_ms"],
         **achieved({"bytes": pq_q1["bytes"], "flops": 0, "dtype": pq_q1["dtype"]}, pq_q1["ms"]),
@@ -2423,7 +3031,7 @@ def main() -> int:
                      for v, t in kp["variants"].items()},
     }]
     if any(e["launches"] <= 0 for e in kernels) or min(flat_paths.values()) <= 0 or \
-            min(v1_paths.values()) <= 0:
+            min(v1_paths.values()) <= 0 or min(pq_paths.values()) <= 0:
         raise AssertionError("a kernel was not launched on its path")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

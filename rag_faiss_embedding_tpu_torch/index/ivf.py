@@ -30,10 +30,11 @@ the same layout, arguments and file format:
 - ``state_dict`` writes the JAX package's "padded_v3" npz layout, so an
   index saved by either package loads in the other.
 
-``remove_ids`` writes -1 into the block ids in place on the device.
+``build_chunked`` builds from a ``source(start, size)`` of chunks for a
+corpus that does not fit on the device. ``remove_ids`` writes -1 into the
+block ids in place on the device.
 
-Not ported yet: ``build_chunked`` (the out-of-memory IVF-PQ build). The
-per-query windowed search (``use_fused=False``) is not ported:
+The per-query windowed search (``use_fused=False``) is not ported:
 ``probe_scan_math`` is kept only as a test oracle.
 """
 
@@ -555,9 +556,219 @@ class IVFFlatIndex:
         bstats["total_s"] = time.perf_counter() - t_start
         logger.info("built IVF: n=%d nlist=%d window=%d spill=%d", n, nlist, window, n_spill)
 
-    def build_chunked(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "build_chunked (the out-of-memory IVF-PQ build) is not ported yet")
+    def build_chunked(self, source, n: int, chunk_size: int = 1 << 20,
+                      train_rows=None) -> None:
+        """Out-of-memory build: the corpus is consumed in chunks and never
+        held whole, on the device or on the host. ``source(start, size)``
+        returns rows [start, start + size) as a numpy array, a tensor on any
+        device, or rows a generator makes anew on each call; it is called
+        with exactly the JAX package's ``(start, size)`` sequence (a
+        generator gives other rows for another size at the same start).
+
+        Coarse training uses ``train_rows``, else a prefix sample of each
+        chunk. Pass A assigns each chunk: ``balance="spill"`` caps the window
+        at a list-length quantile, ``"reassign"`` runs the capacity-capped
+        multi-choice placement on host-accumulated choices. Rows that do not
+        fit (over the window, or out of choices) go to the exact pending
+        tier: unlike ``build``, nothing is rescued. Pass B encodes each chunk
+        (PQ residual codes, SQ8 or a dense cast) into slot buffers allocated
+        once; with ``pq_m`` and ``rerank`` pass C fills the compact refine
+        shadow in corpus-row order. Only the codes, norms, ids, scales, the
+        shadow and the spill tier stay on the device.
+
+        int8 storage with ``rerank=True`` is refused (the slot-laid shadow
+        would double the footprint)."""
+        if self.quantized and self.rerank:
+            raise ValueError("build_chunked int8 requires rerank=False (the bf16 shadow "
+                             "would triple the resident footprint)")
+        t_start = time.perf_counter()
+        bstats = self.build_stats
+        dev = self.device
+        n_chunks = -(-n // chunk_size)
+        chunks = [(i * chunk_size, min(chunk_size, n - i * chunk_size))
+                  for i in range(n_chunks)]
+
+        def rows_of(start: int, size: int) -> torch.Tensor:
+            return dist_ops.as_tensor(source(start, size), dev, torch.float32)
+
+        # ---- coarse training on a bounded sample
+        if not self.is_trained:
+            if train_rows is None:
+                per = -(-min(self.train_sample_per_list * self.nlist, n) // n_chunks)
+                train_rows = torch.cat([rows_of(start, min(per, n - start))
+                                        for start, _ in chunks])
+            self.train(train_rows)
+            del train_rows
+        bstats["train_s"] = time.perf_counter() - t_start
+        nlist = self.nlist
+
+        # ---- pass A: assignment per chunk, accumulated on the host
+        t0 = time.perf_counter()
+        if self.balance == "reassign":
+            c = min(self.reassign_choices, nlist)
+            # bounds the (point_chunk, nlist) float32 score tile
+            pt_chunk = 32768 if nlist > 16384 else 65536
+            choices_np = np.empty((n, c), np.int32)
+            prefs_np = np.empty((n, c), np.float32)
+            for start, size in chunks:
+                ch, cv = assign_topk(rows_of(start, size), self.centroids, c,
+                                     metric=self.metric, bias=self._assign_bias,
+                                     point_chunk=pt_chunk)
+                choices_np[start:start + size] = ch.cpu().numpy()
+                prefs_np[start:start + size] = cv.cpu().numpy()
+                del ch, cv
+            if self.metric == "IP":
+                prefs_np = -prefs_np  # lexsort wants ascending preference
+            cap = self._reassign_cap(n / nlist)
+            assign_np, spill_rows = balanced_assignment(choices_np, prefs_np, nlist, cap)
+            del choices_np, prefs_np
+            if len(spill_rows):
+                logger.info("balanced chunked build: %d/%d rows exhausted %d choices "
+                            "(cap %d) -> exact pending tier", len(spill_rows), n, c, cap)
+            lengths_np = np.bincount(assign_np[assign_np >= 0], minlength=nlist).astype(np.int64)
+            window = int(_round_up(max(int(lengths_np.max()), 1), 128))
+        else:
+            assign_np = np.empty((n,), np.int64)
+            for start, size in chunks:
+                a, _ = kmeans_assign(rows_of(start, size), self.centroids,
+                                     metric=self.metric, bias=self._assign_bias)
+                assign_np[start:start + size] = a.cpu().numpy()
+                del a
+            lengths_np = np.bincount(assign_np, minlength=nlist).astype(np.int64)
+            max_len = max(int(lengths_np.max()), 1)
+            cap = int(_round_up(max(128, int(np.quantile(lengths_np, self.window_quantile))),
+                                128))
+            window = cap if cap < max_len else int(_round_up(max_len, 128))
+        bstats["assign_s"] = time.perf_counter() - t0
+
+        # ---- PQ codebooks on a residual sample of corpus rows, fetched with
+        # a (start, size) the corpus passes use
+        t0 = time.perf_counter()
+        if self.pq_m and self.pq_codebooks is None:
+            sample = rows_of(0, min(chunk_size, n))[:65536]
+            a_s = torch.as_tensor(np.maximum(assign_np[:sample.shape[0]], 0), device=dev)
+            self._train_pq_codec(sample - self.centroids[a_s])  # exhausted rows: list 0
+            del sample, a_s
+
+        # ---- pass B: encode each chunk into slot buffers allocated once;
+        # only kept rows are written, so dead slots stay zero with id -1
+        n_slots = (nlist + 1) * window
+        padded_codes = torch.zeros((n_slots, self.pq_m or self.dim), dtype=self.dtype,
+                                   device=dev)
+        padded_sq = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
+        padded_ids = torch.full((n_slots,), -1, dtype=torch.int32, device=dev)
+        padded_scales = (torch.zeros((n_slots,), dtype=torch.float32, device=dev)
+                         if self.quantized else None)
+        logger.info("chunked build pass B: window %d, %d slots (%.2f GB codes)", window,
+                    n_slots, padded_codes.numel() * padded_codes.element_size() / 1e9)
+        spill_vecs, spill_ids = [], []
+        # rows placed so far per list; group nlist takes the exhausted (-1)
+        # rows of balance="reassign"
+        seen = np.zeros((nlist + 1,), np.int64)
+        for start, size in chunks:
+            rows = rows_of(start, size)
+            a_raw = assign_np[start:start + size]
+            valid = a_raw >= 0
+            a = np.where(valid, a_raw, nlist)
+            scales = None
+            if self.pq_m:
+                codes, rec_sq = self._pq_encode_rows(
+                    rows, torch.as_tensor(np.where(valid, a_raw, 0), device=dev))
+            elif self.quantized:
+                rec_sq = dist_ops.sqnorms(rows)  # exact, before quantization
+                codes, scales = quantize_rows(rows)
+            else:
+                rec_sq = dist_ops.sqnorms(rows)
+                codes = rows.to(self.dtype)
+            # rank within its list = rows placed before + rank in the chunk
+            order = np.argsort(a, kind="stable")
+            a_sorted = a[order]
+            first = np.r_[True, a_sorted[1:] != a_sorted[:-1]]
+            rank_sorted = np.arange(size) - np.maximum.accumulate(
+                np.where(first, np.arange(size), 0))
+            rank = np.empty_like(rank_sorted)
+            rank[order] = rank_sorted
+            rank += seen[a]
+            seen += np.bincount(a, minlength=nlist + 1)
+            keep = (rank < window) & valid
+            kept = torch.as_tensor(np.nonzero(keep)[0], device=dev)
+            dest = torch.as_tensor(a[keep] * window + rank[keep], device=dev)
+            padded_codes[dest] = codes[kept]
+            padded_sq[dest] = rec_sq[kept]
+            padded_ids[dest] = (kept + start).to(torch.int32)
+            if padded_scales is not None:
+                padded_scales[dest] = scales[kept]
+            if not keep.all():
+                spos = torch.as_tensor(np.nonzero(~keep)[0], device=dev)
+                # spilled rows gather on the host across chunks
+                spill_vecs.append(rows[spos].cpu().numpy())
+                spill_ids.append(np.arange(start, start + size, dtype=np.int32)[~keep])
+            del rows, codes, rec_sq, scales, kept, dest
+        self._sync()
+        bstats["encode_s"] = time.perf_counter() - t0
+        n_spill = int(sum(len(s) for s in spill_ids))
+
+        # ---- pass C: the compact refine shadow in corpus-row order (its
+        # slot -> row map is the ids), as its own source pass so that it is
+        # not resident during the encode; every row gets an entry, spilled
+        # ones included
+        padded_shadow = padded_sh_scales = padded_sh_sq = None
+        if self.pq_m and self.rerank:
+            t0 = time.perf_counter()
+            sh_dt = {"int8": torch.int8, "float32": torch.float32}.get(
+                self.refine_dtype, torch.bfloat16)
+            padded_shadow = torch.zeros((n, self.dim), dtype=sh_dt, device=dev)
+            if self.refine_dtype == "int8":
+                padded_sh_scales = torch.zeros((n,), dtype=torch.float32, device=dev)
+            padded_sh_sq = torch.zeros((n,), dtype=torch.float32, device=dev)
+            for start, size in chunks:
+                rows = rows_of(start, size)
+                sh_codes, sh_scales, sh_sq = self._refine_rows(rows, dist_ops.sqnorms(rows))
+                del rows
+                padded_shadow[start:start + size] = sh_codes
+                if padded_sh_scales is not None:
+                    padded_sh_scales[start:start + size] = sh_scales
+                padded_sh_sq[start:start + size] = sh_sq
+                del sh_codes, sh_scales, sh_sq
+            self._sync()
+            bstats["shadow_s"] = time.perf_counter() - t0
+
+        # ---- install
+        t0 = time.perf_counter()
+        self._sorted_vecs = padded_codes
+        self._sorted_sq = padded_sq
+        self._sorted_ids = padded_ids
+        self._sorted_scales = padded_scales
+        self._sorted_shadow = padded_shadow
+        self._sorted_shadow_scales = padded_sh_scales
+        self._sorted_shadow_sq = padded_sh_sq
+        # the ids are corpus positions, so they are the slot -> shadow-row
+        # map; a copy, because remove_ids writes -1 into the ids in place
+        # (JAX's arrays are immutable, so its alias keeps the built map)
+        self._shadow_pos = padded_ids.clone() if padded_shadow is not None else None
+        self._offsets = torch.arange(nlist, dtype=torch.int32, device=dev) * window
+        self._lengths = torch.as_tensor(np.minimum(lengths_np, window), dtype=torch.int32,
+                                        device=dev)
+        self._cent_store = self.centroids.to(self._cent_dtype())
+        self._cent_sq = dist_ops.sqnorms(self.centroids)
+        self._pending.reset()
+        self._pending_rowids = np.zeros((0,), np.int32)
+        self._pending_rowids_dev = None
+        self._n_streamed = 0
+        self._n_spill = n_spill
+        if n_spill:
+            self._pending.add(torch.as_tensor(np.concatenate(spill_vecs), device=dev))
+            self._pending_rowids = np.concatenate(spill_ids)
+            logger.info("chunked build window %d: %d rows spilled to the exact tier",
+                        window, n_spill)
+        self._window = window
+        self._n_built = n - n_spill
+        self._next_id = n
+        self.ndeleted = 0
+        bstats["finalize_s"] = time.perf_counter() - t0
+        bstats["total_s"] = time.perf_counter() - t_start
+        logger.info("chunked-built IVF: n=%d nlist=%d window=%d spill=%d", n, nlist, window,
+                    n_spill)
 
     def add(self, vectors) -> None:
         """Streaming add into the exact pending tier; the first add builds,

@@ -213,15 +213,15 @@ def infer_config_from_params(params) -> MiniLMConfig:
     )
 
 
-def deterministic_params(cfg: MiniLMConfig, seed: int = 0) -> dict:
+def deterministic_params(cfg: MiniLMConfig, seed: int | torch.Generator = 0) -> dict:
     """Offline fallback: reproducible random init, as a Flax-layout tree.
 
-    Drawn from a seeded ``torch.Generator`` with the distributions of
+    Drawn from ``seed`` (a seed or a ``torch.Generator``) with the distributions of
     Flax's default initializers (normal with std 1/sqrt(fan_in) for dense
     kernels and embeddings, zero biases, unit LayerNorm scales). It does
     NOT reproduce the JAX package's bits for the same seed: to compare the
     two packages, give both one parameter file."""
-    g = torch.Generator().manual_seed(seed)
+    g = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
     h, heads, ffn = cfg.hidden_size, cfg.num_heads, cfg.intermediate_size
     hd = h // heads
 

@@ -10,7 +10,10 @@ encoder), the same network: a BERT post-LN encoder at MiniLM-L6 scale
 - CLS or mean pooling; only the (B, hidden) pooled output leaves.
 
 Module names follow the Flax parameter tree (``models/convert.py`` moves
-weights across). This is the inference encoder: no dropout, no gradients.
+weights across). There is no dropout: the JAX trainer and its embedder both
+run the Flax module with ``deterministic=True``. The module carries
+gradients, so ``parallel/train.py`` trains it directly; the embedding
+pipeline runs it under ``torch.inference_mode()``.
 
 ``MiniLMConfig(dtype="bfloat16")`` is the Flax model's bf16 compute mode,
 step by step: parameters stay float32 and are cast at use; the three
@@ -40,7 +43,7 @@ class MiniLMConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
-    dropout_rate: float = 0.1  # kept for config parity; inference only
+    dropout_rate: float = 0.1  # kept for config parity; never applied
     dtype: str = "float32"  # compute dtype: "float32" or "bfloat16"
 
     @property
@@ -159,3 +162,14 @@ class MiniLMEncoder(nn.Module):
             mask = attention_mask[..., None].to(torch.float32)
             return (x * mask).sum(1) / mask.sum(1).clamp_min(1e-9)
         raise ValueError(f"unknown pooling {pooling!r}")
+
+    def init_params(self, rng: int | torch.Generator, max_len: int = 8) -> dict:
+        """A fresh Flax-layout parameter tree (numpy) for this config, drawn
+        from ``rng`` (a seed or a ``torch.Generator``) with the distributions
+        of Flax's default initializers, as ``convert.deterministic_params``
+        draws them. It cannot reproduce ``jax.random``'s bits: to compare
+        the two packages, give both one parameter tree. ``max_len`` is the
+        Flax version's dummy input length; the tree does not depend on it."""
+        from .convert import deterministic_params
+
+        return deterministic_params(self.cfg, rng)

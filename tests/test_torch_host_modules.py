@@ -6,7 +6,7 @@ The port carries copies of the JAX package's framework-free host modules
 (``clean_text``, ``DocumentValidator.validate_document``). These tests hold
 each copy to its original on the same inputs, and check, by an ``ast`` scan
 and in a fresh process, that no module of the port (nor ``chip_smoke.py``)
-imports ``jax``, ``flax`` or ``rag_faiss_embedding_tpu``, nor a host
+imports ``jax``, ``flax``, ``optax``, ``orbax`` or ``rag_faiss_embedding_tpu``, nor a host
 library the card's machine lacks (``aiohttp``, ``bs4``, ``rich``,
 ``fastapi``).
 """
@@ -36,7 +36,7 @@ from rag_faiss_embedding_tpu_torch.utils import text as ttext
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "rag_faiss_embedding_tpu_torch"
-FORBIDDEN = ("jax", "flax", "rag_faiss_embedding_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "rag_faiss_embedding_tpu")
 MISSING_ON_THE_CARD = ("aiohttp", "bs4", "rich", "fastapi")
 SOURCES = sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
 
@@ -89,7 +89,7 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     print(json.dumps({
         "modules": len(names), "hits": [h["id"] for h in hits],
         "loaded": sorted(k for k in sys.modules
-                         if k.split(".")[0] in ("jax", "flax", "jaxlib",
+                         if k.split(".")[0] in ("jax", "flax", "jaxlib", "optax", "orbax",
                                                 "rag_faiss_embedding_tpu", "aiohttp",
                                                 "bs4", "rich", "fastapi")),
     }))

@@ -306,8 +306,8 @@ def test_probe_scan_oracle_agrees_with_fused_full_probe():
 def test_not_ported_yet_raise_naming_the_slice():
     """int8 storage and ``rerank`` are ported (the int8 tier): int8 reranks
     by default, float storage keeps no shadow (as in JAX), and int8 or a
-    shadow refuse the kernel route with JAX's ``ValueError``. Only
-    ``build_chunked`` still raises, naming itself."""
+    shadow refuse the kernel route with JAX's ``ValueError``. ``build_chunked``
+    no longer raises: it equals the dense build."""
     for rerank, shadow in ((None, True), (True, True), (False, False)):
         idx = TIVF(D, nlist=4, dtype="int8", rerank=rerank, train_iters=2, device="cpu")
         assert idx.quantized and idx.rerank == shadow and idx._pending.quantized
@@ -319,8 +319,17 @@ def test_not_ported_yet_raise_naming_the_slice():
     # refine shadow
     pq = TIVF(D, pq_m=16, rerank=True, device="cpu")
     assert pq.dtype == torch.uint8 and pq.rerank and pq.refine_dtype == "int8"
-    with pytest.raises(NotImplementedError, match="build_chunked"):
-        TIVF(D, device="cpu").build_chunked(None, 10)
+    # build_chunked is ported: with training pinned, a tiny chunked build
+    # equals the dense build
+    rows = _data()[0][:512]
+    dense = TIVF(D, nlist=4, train_iters=2, device="cpu")
+    dense.build(rows)
+    chunked = TIVF(D, nlist=4, device="cpu")
+    chunked.centroids, chunked.is_trained = dense.centroids, True
+    chunked.build_chunked(lambda s, z: rows[s:s + z], n=len(rows), chunk_size=200)
+    assert chunked._window == dense._window
+    for name in ("_sorted_ids", "_sorted_vecs", "_sorted_sq", "_lengths"):
+        assert torch.equal(getattr(chunked, name), getattr(dense, name)), name
     args = (torch.zeros(1, D), torch.zeros(2, D), torch.zeros(2),
             torch.zeros(3 * 128, D, dtype=torch.int8), torch.ones(3 * 128),
             torch.zeros(3 * 128), torch.zeros(3 * 128, dtype=torch.int32))

@@ -13,7 +13,8 @@ the port, so every difference is a gap, except:
 
 and the gaps listed in ``GAPS``, each with the ROADMAP Queue 1 item whose
 tier closes it. The test fails when a new gap appears, and when a listed gap
-has closed but is still listed.
+has closed but is still listed. For the training modules, the public names
+the port lacks altogether are listed in ``MODULE_GAPS`` the same way.
 """
 
 import dataclasses
@@ -34,9 +35,13 @@ FLAX_FIELDS = {"parent", "name"}
 GAPS = {
     "index.vector_store:VectorStore.__init__": ({"mesh"}, set(),
                                                 "Queue 1 item 7, multi-GPU"),
-    "models.minilm:MiniLMEncoder": ({"init_params"}, set(), "Queue 1 item 8, training"),
-    "index.ivf:IVFFlatIndex.build_chunked": ({"source", "n", "chunk_size", "train_rows"},
-                                             {"args", "kwargs"}, "Queue 1 item 6"),
+}
+
+# public names a port module lacks against its JAX twin: "module": (names,
+# the ROADMAP Queue 1 item that closes it)
+MODULE_GAPS = {
+    "parallel.train": ({"param_sharding_rules", "shard_params"},
+                       "Queue 1 item 7, multi-GPU (the trainer's tensor-parallel layout)"),
 }
 
 
@@ -132,9 +137,12 @@ def test_every_listed_gap_names_a_shared_item_and_a_tier():
         assert tier.startswith("Queue 1 item "), key
 
 
-# the serving, CLI and ingest modules (Queue 1 item 5), each public name
-# compared; ``cli.train`` waits for the training slice (Queue 1 item 8)
+# the serving, CLI, ingest and training modules (Queue 1 items 5 and 8),
+# each public name compared
 SERVING_AND_CLIS = {
+    "cli.train": {"make_pairs", "batch_iterator", "train", "main"},
+    "parallel.train": {"TrainState", "info_nce_loss", "train_step_fn", "make_train_step"},
+    "parallel.checkpoint": {"TrainCheckpointer"},
     "serve.api": {"SearchService", "make_app", "main"},
     "serve.client": {"APISearch", "main"},
     "cli.admin": {"AdminTool", "main"},
@@ -153,7 +161,24 @@ def test_serving_cli_and_ingest_modules_are_compared():
     compared = set(ITEMS)
     for module, names in SERVING_AND_CLIS.items():
         assert {(module, n) for n in names} <= compared, module
-    assert not any(m == "cli.train" for m, _ in ITEMS)
+
+
+def _public_defs(mod):
+    return {n for n, o in vars(mod).items() if not n.startswith("_")
+            and (inspect.isfunction(o) or inspect.isclass(o))
+            and getattr(o, "__module__", None) == mod.__name__}
+
+
+@pytest.mark.parametrize("module", sorted({m for m in SERVING_AND_CLIS if m.startswith(
+    ("cli.train", "parallel."))}))
+def test_training_modules_lack_only_listed_names(module):
+    """Every public function and class of the JAX training modules is in the
+    port, but the names ``MODULE_GAPS`` lists, each with its tier."""
+    jmod = importlib.import_module(f"rag_faiss_embedding_tpu.{module}")
+    tmod = importlib.import_module(f"{port.__name__}.{module}")
+    missing = {n for n in _public_defs(jmod) if not hasattr(tmod, n)}
+    listed, tier = MODULE_GAPS.get(module, (set(), "Queue 1 item "))
+    assert missing == listed and tier.startswith("Queue 1 item ")
 
 
 def test_closed_gaps_stay_closed():
@@ -163,7 +188,8 @@ def test_closed_gaps_stay_closed():
     every search); then the int8 tier's ``selector`` / ``recall_target`` of
     ``exact_search`` and ``pq_search`` and ``recall_target`` /
     ``rerank_shadow`` of ``FlatIndex``, ``VectorStore.import_faiss`` and
-    ``MiniLMConfig.compute_dtype``."""
+    ``MiniLMConfig.compute_dtype``; then ``IVFFlatIndex.build_chunked`` and
+    ``MiniLMEncoder.init_params``."""
     from rag_faiss_embedding_tpu_torch.index.flat import FlatIndex
     from rag_faiss_embedding_tpu_torch.index.vector_store import VectorStore
     from rag_faiss_embedding_tpu_torch.models.minilm import MiniLMConfig
@@ -177,4 +203,10 @@ def test_closed_gaps_stay_closed():
     assert {"recall_target", "rerank_shadow"} <= set(_params(FlatIndex.__init__))
     assert callable(VectorStore.import_faiss)
     assert MiniLMConfig(dtype="bfloat16").compute_dtype == torch.bfloat16
+    from rag_faiss_embedding_tpu_torch.index.ivf import IVFFlatIndex
+    from rag_faiss_embedding_tpu_torch.models.minilm import MiniLMEncoder
+
+    assert _params(IVFFlatIndex.build_chunked) == ["self", "source", "n", "chunk_size",
+                                                   "train_rows"]
+    assert _params(MiniLMEncoder.init_params) == ["self", "rng", "max_len"]
     assert len(ITEMS) > 20
