@@ -166,12 +166,33 @@ Phases, one JSON object per line:
     ``cli.train`` as a subprocess (20 steps) and a ``RAGManager`` on what it
     wrote, indexing the slice's documents and serving its requests through
     the flat-scan kernel.
+18. sharded (after phase 16): a mesh of every card on a "db" axis, or of
+    4 shards on the one card (printed on its own line with the device
+    count). ``ShardedFlatIndex`` over BASELINE.md config #4, 10,485,760 x
+    384 float32 rows of bench.py's distribution made on the card and added
+    chunk by chunk (capacity set up front): k 10 at Q 1 and 1,024, then with
+    30% of the rows removed and under a filter, each held to the streamed
+    ground truth, one K1 launch per shard per search, CUDA-event ms, K1
+    against its plain version on a shard. ``ShardedIVFIndex(nlist 8,192)``
+    over phase 6's rows on phase 6's centroids: bf16 (K2 per shard), int8
+    and IVF-PQ M 48 (K4 per shard); recall@10 at nprobe 8 and 16, Q 1 and
+    1,024 (bf16 and int8 >= RECALL_MIN and within RECALL_SLACK of a one-card
+    ``IVFFlatIndex`` on the same centroids); the kernel routes against the
+    plain ones (K4 bit for bit); K2 against its plain version on two shards;
+    a profile of the bf16 searches. The bf16 index saved through
+    ``VectorStore`` and reloaded onto the same mesh (bit-exact, no build)
+    and with no mesh (every visible card, re-striped). The slice's 4,096
+    documents served by ``QueryEngine`` from a ``sharded_ivf`` file of
+    their embeddings (K2 on every shard; probing every list, the one-card
+    IVF engine's answers).
 
 Then a ``{"kernels": [...]}`` line (launch counts from each kernel's path,
 with a ``paths`` breakdown: the flat scan's from the slice, the server, the
-10M ground truth and the trained manager, union-scan variant 1's from the
-IVF slice, the IVF server and the chunked bf16 build, variant 2's from the
-IVF kernel phase, the PQ decode's from the PQ slice and the 10M searches,
+10M ground truth, the trained manager and the sharded 10M searches,
+union-scan variant 1's from the IVF slice, the IVF server, the chunked bf16
+build and the sharded IVF (1M and the slice), variant 2's from the IVF
+kernel phase, the PQ decode's from the PQ slice, the 10M searches and the
+sharded IVF-PQ,
 K5's from the prototype search, K6's from the probe's run; each with its
 bound at the path's shape, its achieved TFLOP/s and share of that bound,
 and the one-call library time where one exists)
@@ -2081,17 +2102,21 @@ def host_rss_bytes() -> int:
     return -1
 
 
-def streamed_truth(torch, F, source, queries, n: int, chunk: int, k: int = 10):
+def streamed_truth(torch, F, source, queries, n: int, chunk: int, k: int = 10,
+                   dead=None):
     """The exact float32 top-k of ``queries`` over ``source``'s rows,
-    streamed chunk by chunk through the flat-scan kernel and merged."""
+    streamed chunk by chunk through the flat-scan kernel and merged; rows
+    marked in ``dead`` ((n,) bool) never return."""
     from rag_faiss_embedding_tpu_torch.ops.distance import sqnorms
 
     best_v = torch.full((queries.shape[0], k), float("inf"), device=queries.device)
     best_i = torch.full((queries.shape[0], k), -1, dtype=torch.long, device=queries.device)
     for start in range(0, n, chunk):
         rows = source(start, min(chunk, n - start))
-        v, i = F.flat_search(queries, rows, k, db_sq=sqnorms(rows))
-        cat_v, cat_i = torch.cat([best_v, v], 1), torch.cat([best_i, i.long() + start], 1)
+        v, i = F.flat_search(queries, rows, k, db_sq=sqnorms(rows), dead=None if dead is None
+                             else dead[start:start + rows.shape[0]])
+        i = torch.where(i >= 0, i.long() + start, -1)
+        cat_v, cat_i = torch.cat([best_v, v], 1), torch.cat([best_i, i], 1)
         best_v, pos = torch.topk(cat_v, k, dim=1, largest=False, sorted=True)
         best_i = torch.gather(cat_i, 1, pos)
     return best_v, best_i
@@ -2568,6 +2593,474 @@ def train_phase(torch, F, workdir: Path) -> dict:
             "path_launches": {"flat_scan": launches}}
 
 
+# ----------------------------------------------------------------- phase 18
+# BASELINE.md config #4 (10M x 384 float32 flat, split over devices) and
+# bench.py's 1M IVF shape over the same mesh
+SHARDED_N, SHARDED_SHARDS = 10 * (1 << 20), 4
+SHARDED_NPROBES = (8, 16)
+SHARDED_PQ_M = 48
+
+
+def sharded_mesh(torch):
+    """Every card on a "db" axis where there are several, else
+    ``SHARDED_SHARDS`` shards on the one card."""
+    from rag_faiss_embedding_tpu_torch.core.mesh import make_mesh
+
+    if torch.cuda.device_count() > 1:
+        return make_mesh({"db": torch.cuda.device_count()})
+    return make_mesh({"db": SHARDED_SHARDS}, devices=[torch.device("cuda", 0)] * SHARDED_SHARDS)
+
+
+def shard_bytes(*shard_lists) -> list:
+    """Device bytes of each shard, summed over per-shard tensor lists."""
+    return [tensor_bytes(*parts) for parts in zip(*shard_lists)]
+
+
+def held_to_truth(torch, q, rows_of, x_sq_max: float, kv, ki, tv, ti, rtol=RTOL["float32"]):
+    """L2 (kv, ki) against the truth (tv, ti): the same missing slots, values
+    within rtol x (max ||q||^2 + max ||x||^2) at every slot, and every id
+    that differs from the truth's carrying its own float64 distance within
+    that tolerance (a near-tie); ``rows_of(ids)`` gives rows by global id.
+    Returns (max_abs_err, ids that differ)."""
+    atol = rtol * (float((q.double() ** 2).sum(1).max()) + x_sq_max)
+    fin = torch.isfinite(tv)
+    if not torch.equal(fin, torch.isfinite(kv)) or not torch.equal(ki >= 0, fin):
+        raise AssertionError("missing slots differ from the truth's")
+    err = float((kv - tv).abs()[fin].max()) if fin.any() else 0.0
+    if err > atol:
+        raise AssertionError(f"values differ from the truth by {err} (tolerance {atol})")
+    differ = (ki.long() != ti.long()) & fin
+    if differ.any():
+        qi, _ = torch.nonzero(differ, as_tuple=True)
+        true = ((q[qi].double() - rows_of(ki[differ].long()).double()) ** 2).sum(-1)
+        if not bool(((true - kv[differ].double()).abs() <= atol).all()):
+            raise AssertionError("an id that differs from the truth's is not a near-tie")
+    return err, int(differ.sum())
+
+
+def sharded_flat_run(torch, F, mesh) -> dict:
+    """BASELINE.md config #4 in ``ShardedFlatIndex``: 10,485,760 x 384
+    float32 rows of bench.py's distribution, made on the card chunk by chunk
+    (``chunk_source``) and added with the capacity set up front; searches at
+    k 10, Q 1 and 1,024, plain, with 30% of the rows removed and under a
+    filter, each held to the streamed ground truth; one K1 launch per shard
+    per search; the kernel against its plain version on a shard."""
+    from rag_faiss_embedding_tpu_torch.parallel import ShardedFlatIndex
+
+    cuda = torch.device("cuda")
+    source = chunk_source(torch)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    base = source(0, CHUNKED_CHUNK)  # queries: corpus rows + 0.3 noise, as bench.py
+    queries = base[torch.randint(0, CHUNKED_CHUNK, (IVF_Q,), generator=g, device=cuda)]
+    queries += 0.3 * torch.randn(IVF_Q, IVF_DIM, generator=g, device=cuda)
+    del base
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = ShardedFlatIndex(IVF_DIM, mesh, capacity=SHARDED_N)
+    for start in range(0, SHARDED_N, CHUNKED_CHUNK):
+        idx.add(source(start, min(CHUNKED_CHUNK, SHARDED_N - start)))
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    per = idx._capacity // idx.n_dev
+    x_sq_max = max(float(s.max()) for s in idx._sq)
+
+    def rows_of(ids):
+        out = torch.empty((ids.numel(), IVF_DIM), device=cuda)
+        for j, buf in enumerate(idx._buf):
+            m = ids // per == j
+            out[m] = buf[(ids[m] % per)].to(cuda)
+        return out
+
+    cases = []
+    g.manual_seed(SEED + 3)
+    gone = torch.randperm(SHARDED_N, generator=g, device=cuda)[: int(0.3 * SHARDED_N)]
+    keep = torch.rand(SHARDED_N, generator=g, device=cuda) < 0.5
+    for case in ("all rows", "30% removed", "30% removed + filter"):
+        dead = None
+        if case != "all rows":
+            if idx.ndeleted == 0:
+                idx.remove_ids(gone.cpu().numpy())
+            dead = torch.zeros(SHARDED_N, dtype=torch.bool, device=cuda)
+            dead[gone] = True
+        kw = {}
+        if case.endswith("filter"):
+            kw["filter_mask"] = keep
+            dead = dead | ~keep
+        tv, ti = streamed_truth(torch, F, source, queries, SHARDED_N, CHUNKED_CHUNK,
+                                dead=dead)
+        torch.cuda.synchronize()
+        for nq in (1, IVF_Q):
+            F.flat_search.launches = 0  # this search's launches
+            kv, ki = idx.search(queries[:nq], 10, **kw)
+            torch.cuda.synchronize()
+            launches = F.flat_search.launches
+            if launches != idx.n_dev:
+                raise AssertionError(f"{case}: K1 launched {launches} times over "
+                                     f"{idx.n_dev} shards")
+            err, mism = held_to_truth(torch, queries[:nq], rows_of, x_sq_max, kv, ki,
+                                      tv[:nq], ti[:nq])
+            if dead is not None and bool(dead[ki.long()].any()):
+                raise AssertionError(f"{case}: a removed or filtered row came back")
+            cases.append({"case": case, "Q": nq, "k1_launches": launches,
+                          "max_abs_err_vs_truth": err, "id_mismatch_vs_truth": mism,
+                          "ms": cuda_ms(torch, lambda: idx.search(queries[:nq], 10, **kw),
+                                        5 if nq > 1 else 10)})
+    path_launches = sum(c["k1_launches"] for c in cases)
+    # K1 against its plain version at a shard's shape
+    shard = {}
+    for nq in (1, IVF_Q):
+        q = queries[:nq]
+        err, mism, _ = check_scan(torch, F, q, idx._buf[0], idx._sq[0], 10, "L2")
+        shard[f"Q={nq}"] = {
+            "N": per, "D": IVF_DIM, "k": 10, "max_abs_err": err, "id_mismatch": mism,
+            "ms": cuda_ms(torch, lambda: F.flat_search(q, idx._buf[0], 10, db_sq=idx._sq[0])),
+            "plain_ms": cuda_ms(torch, lambda: F.flat_search_reference(
+                q, idx._buf[0], 10, db_sq=idx._sq[0]), 3, 1)}
+        shard[f"Q={nq}"].update(achieved(flat_work(nq, per, IVF_DIM, 10), shard[f"Q={nq}"]["ms"]))
+    profile = search_profile(torch, idx, queries[:1], 8)
+    out = {"N": SHARDED_N, "D": IVF_DIM, "dtype": "float32", "shards": idx.n_dev,
+           "rows_per_shard": per, "add_s": add_s,
+           "shard_bytes": shard_bytes(idx._buf, idx._sq),
+           "cases": cases, "path_launches": path_launches,
+           "shard_kernel_times": shard, "search_profile_q1": profile,
+           "max_abs_err": max(v["max_abs_err"] for v in shard.values())}
+    out["total_bytes"] = sum(out["shard_bytes"])
+    del idx, queries, keep, gone
+    torch.cuda.empty_cache()
+    return out
+
+
+def recall_rows(torch, idx, queries, truth, nprobes, kernels=()):
+    """recall@10 at Q 1 (64 single queries) and Q 1,024 at each nprobe, and
+    CUDA-event search ms; with the launch count of each wrapper in
+    ``kernels`` taken after the recall searches (before the timed ones)."""
+    from rag_faiss_embedding_tpu_torch.benchmarks.fused_proto import recall_at
+
+    single = queries[:64]
+    rows = []
+    for nprobe in nprobes:
+        ids1 = torch.cat([idx.search(single[i:i + 1], 10, nprobe=nprobe)[1]
+                          for i in range(len(single))])
+        _, ids = idx.search(queries, 10, nprobe=nprobe)
+        rows.append({"nprobe": nprobe, "recall@10_q1": recall_at(ids1, truth[:64]),
+                     "recall@10_q1024": recall_at(ids, truth)})
+    torch.cuda.synchronize()
+    launches = [k.launches for k in kernels]
+    for r in rows:
+        nprobe = r["nprobe"]
+        r["ms_q1"] = cuda_ms(torch, lambda: idx.search(single[:1], 10, nprobe=nprobe))
+        r["ms_q1024"] = cuda_ms(torch, lambda: idx.search(queries, 10, nprobe=nprobe), 5, 1)
+    return rows, launches
+
+
+def shard_union_check(torch, S, U, idx, j: int, q, nprobe: int) -> dict:
+    """K2 against its plain version on shard ``j``'s tensors at the union
+    scan a search of ``q`` gives that shard (its coarse stage and union)."""
+    import types
+
+    disp = idx._dispatch(q.shape[0], nprobe, False)
+    if disp["backend"] != "pallas" or disp["interpret"]:
+        raise AssertionError(f"the sharded index does not dispatch the kernel: {disp}")
+    _, qp, u_all, _ = S._coarse_union(
+        q.float(), idx._cent_store[j], idx._cent_sq[j], nprobe=nprobe, metric=idx.metric,
+        union_cap=disp["union_cap"], qc=disp["qc"], union_mode=disp["union_mode"])
+    args = S.union_scan_args(qp, u_all, idx._vecs[j], idx._sq[j], idx._ids[j], k=10,
+                             window=idx._window, metric=idx.metric, pallas_cap=2,
+                             pallas_variant=1)
+    shard = types.SimpleNamespace(_sorted_ids=idx._ids[j], _sorted_vecs=idx._vecs[j],
+                                  ntotal=idx.ntotal)
+    err, mism = union_check(torch, U, shard, args, 10)
+    return {"shard": j, "Q": q.shape[0], "nprobe": nprobe, "chunks": args["qs"].shape[0],
+            "qc": args["qs"].shape[1], "U": args["u_all"].shape[1], "window": idx._window,
+            "max_abs_err": err, "id_mismatch": mism, **union_work(torch, U, args, q.shape[0]),
+            "ms": cuda_ms(torch, lambda: U.union_scan(**args)),
+            "plain_ms": cuda_ms(torch, lambda: U.union_scan_reference(**args))}
+
+
+def sharded_ivf_run(torch, F, U, PD, mesh, coarse, workdir: Path) -> dict:
+    """bench.py's 1M x 384 rows over the mesh in ``ShardedIVFIndex(nlist
+    8,192)`` on phase 6's centroids: bf16 (K2 per shard), int8 and IVF-PQ
+    (M 48, K4 per shard); recall@10 at nprobe 8 and 16 against the exact
+    top-10, each held to a one-card ``IVFFlatIndex`` on the same centroids
+    (IVF-PQ: and the same codebooks); the kernel routes against the plain
+    ones; then the bf16 index
+    saved and reloaded through ``VectorStore``."""
+    from rag_faiss_embedding_tpu_torch.index import IVFFlatIndex, VectorStore
+    from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
+    from rag_faiss_embedding_tpu_torch.ops.distance import sqnorms
+    from rag_faiss_embedding_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+
+    cuda = torch.device("cuda")
+    db, queries = bench_rows(torch)
+    _, truth = F.flat_search(queries, db, 10, db_sq=sqnorms(db))  # exact float32 top-10
+    x_sq_max = float(sqnorms(db).max())
+    out, launches = {"N": IVF_N, "D": IVF_DIM, "nlist": IVF_NLIST, "shards": mesh.size}, {}
+    keep_bf16 = None
+    for dtype in ("bfloat16", "int8", "pq"):
+        kw = {"pq_m": SHARDED_PQ_M} if dtype == "pq" else {"dtype": dtype}
+        t0 = time.perf_counter()
+        idx = ShardedIVFIndex(IVF_DIM, mesh, nlist=IVF_NLIST, train_iters=10, **kw)
+        idx.centroids = coarse.clone()
+        idx.build(db)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        U.union_scan.launches = PD.decode.launches = 0  # this index's searches
+        rows, (k2, k4) = recall_rows(torch, idx, queries, truth, SHARDED_NPROBES,
+                                     (U.union_scan, PD.decode))
+        n_search = len(SHARDED_NPROBES) * (64 + 1)
+        res = {"build_s": build_s, "window": idx._window,
+               "spill_rows": sum(idx._spill[3]) if idx._spill is not None else 0,
+               "shard_bytes": shard_bytes(idx._vecs, idx._sq, idx._ids,
+                                          idx._scales or [None] * idx.n_dev),
+               "routes": rows, "searches": n_search, "k2_launches": k2, "k4_launches": k4}
+        res["total_bytes"] = sum(res["shard_bytes"])
+        if dtype == "pq":
+            if k4 < idx.n_dev * n_search:
+                raise AssertionError(f"K4 launched {k4} times for {n_search} searches over "
+                                     f"{idx.n_dev} shards")
+            launches["pq_decode"] = k4
+            kern = idx.search(queries, 10, nprobe=8)
+            idx.backend = "xla"
+            plain = idx.search(queries, 10, nprobe=8)
+            idx.backend = "auto"
+            if not all(torch.equal(a, b) for a, b in zip(kern, plain)):
+                raise AssertionError("sharded IVF-PQ: the decode kernel and the plain decode "
+                                     "disagree")
+            # K4 at a shard's shape: its first union segment of the first chunk
+            disp = idx._dispatch(IVF_Q, 8, False)
+            _, _, u_all, _ = S._coarse_union(
+                queries.float(), idx._cent_store[0], idx._cent_sq[0], nprobe=8, metric="L2",
+                union_cap=disp["union_cap"], qc=disp["qc"], union_mode=disp["union_mode"])
+            codes = idx._vecs[0].view(-1, idx._window, SHARDED_PQ_M)[u_all[0].long()]
+            cb = idx._pq_operands()[0][0]
+            err, ms, plain_ms = decode_check(torch, PD, cb, codes.reshape(-1, SHARDED_PQ_M))
+            res["shard_decode"] = {"rows": codes.shape[0] * idx._window, "M": SHARDED_PQ_M,
+                                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        one = IVFFlatIndex(IVF_DIM, nlist=IVF_NLIST, train_iters=10, rerank=False, device=cuda,
+                           **kw)
+        one.centroids, one.is_trained = coarse.clone(), True
+        if dtype == "pq":
+            one.pq_codebooks = idx.pq_codebooks.clone()  # the same codec on both
+        one.build(db)
+        res["one_card"] = recall_rows(torch, one, queries, truth, SHARDED_NPROBES)[0]
+        res["one_card_window"] = one._window
+        del one
+        # IVF-PQ without refine has no absolute floor (ADC alone); it is held
+        # to the one-card IVF-PQ on the same centroids and codebooks
+        floor = 0.0 if dtype == "pq" else RECALL_MIN
+        for r, o in zip(rows, res["one_card"]):
+            for key in ("recall@10_q1", "recall@10_q1024"):
+                if r[key] < floor or r[key] < o[key] - RECALL_SLACK:
+                    raise AssertionError(f"sharded {dtype} nprobe {r['nprobe']} {key} "
+                                         f"{r[key]} (one card {o[key]})")
+        if dtype == "pq":
+            out[dtype] = res
+            del idx
+            continue
+        if dtype == "bfloat16":
+            if k2 != idx.n_dev * n_search:
+                raise AssertionError(f"K2 launched {k2} times for {n_search} searches over "
+                                     f"{idx.n_dev} shards")
+            launches["union_scan_v1"] = k2
+            # the whole search with K2's plain version in the kernel's place,
+            # on the same card tensors (bf16 storage: bf16's rtol, as
+            # union_check holds K2)
+            kv, ki = idx.search(queries, 10, nprobe=8)
+            S.union_scan = U.union_scan_reference
+            try:
+                pv, pi = idx.search(queries, 10, nprobe=8)
+            finally:
+                S.union_scan = U.union_scan
+            err, mism = held_to_truth(torch, queries, lambda ids: db[ids], x_sq_max,
+                                      kv, ki, pv, pi, RTOL["bfloat16"])
+            res["kernel_vs_plain_version"] = {"max_abs_err": err, "id_mismatch": mism}
+            res["shard_kernel_cases"] = [shard_union_check(torch, S, U, idx, j, queries[:nq], p)
+                                         for j in (0, idx.n_dev - 1) for nq in (1, IVF_Q)
+                                         for p in SHARDED_NPROBES[:1]]
+            res["search_profile"] = {f"Q={q.shape[0]}": search_profile(torch, idx, q, reps)
+                                     for q, reps in ((queries[:1], 8), (queries, 3))}
+            keep_bf16 = idx
+        else:
+            del idx
+        out[dtype] = res
+        torch.cuda.empty_cache()
+    out["persistence"] = sharded_reload(torch, keep_bf16, mesh, queries, db, x_sq_max,
+                                        workdir)
+    out["path_launches"] = launches
+    del keep_bf16, db
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_reload(torch, idx, mesh, queries, db, x_sq_max: float, workdir: Path) -> dict:
+    """The bf16 sharded IVF saved through ``VectorStore``, reloaded onto the
+    same mesh (bit-exact searches, no build) and with no mesh (re-striped
+    onto the visible cards: the same ids but at near-ties, on the exact
+    chunk body and on the kernel route)."""
+    from rag_faiss_embedding_tpu_torch.index import VectorStore
+    from rag_faiss_embedding_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+
+    cuda = torch.device("cuda")
+    path = workdir / "sharded_ivf.idx"
+    store = VectorStore(dimension=IVF_DIM, index_path=path, index=idx, device=cuda)
+    store.doc_ids = list(range(idx.ntotal))
+    t0 = time.perf_counter()
+    store.save_index()
+    save_s = time.perf_counter() - t0
+    before = idx.search(queries, 10, nprobe=8)
+
+    def no_build(*a, **k):
+        raise AssertionError("a reload onto the saved mesh must not build")
+
+    built, ShardedIVFIndex.build = ShardedIVFIndex.build, no_build
+    try:
+        t0 = time.perf_counter()
+        same = VectorStore(index_path=path, mesh=mesh, device=cuda)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        ShardedIVFIndex.build = built
+    after = same.index.search(queries, 10, nprobe=8)
+    if not all(torch.equal(a, b) for a, b in zip(before, after)):
+        raise AssertionError("a reload onto the same mesh searches differently")
+    del same
+    t0 = time.perf_counter()
+    default = VectorStore(index_path=path, device=cuda)  # every visible card
+    restripe_s = time.perf_counter() - t0
+    other = default.index
+    kernel_route = other.search(queries, 10, nprobe=8)
+    for i in (idx, other):
+        i.backend = "xla"
+    err, mism = held_to_truth(torch, queries, lambda ids: db[ids], x_sq_max,
+                              *other.search(queries, 10, nprobe=8),
+                              *idx.search(queries, 10, nprobe=8))
+    for i in (idx, other):
+        i.backend = "auto"
+    # the kernel route on the re-striped index against the saved one's:
+    # bf16 storage, held as K2 is held to its plain version
+    route_err, route_differ = held_to_truth(torch, queries, lambda ids: db[ids], x_sq_max,
+                                            *kernel_route, *before, RTOL["bfloat16"])
+    out = {"file_bytes": path.stat().st_size, "save_s": save_s, "load_same_mesh_s": load_s,
+           "same_mesh_bit_exact": True, "default_mesh_shards": other.n_dev,
+           "default_mesh_window": other._window, "load_default_mesh_s": restripe_s,
+           "default_mesh_plain_route_vs_saved": {"max_abs_err": err, "id_mismatch": mism},
+           "default_mesh_kernel_route_vs_saved": {"max_abs_err": route_err,
+                                                  "id_mismatch": route_differ}}
+    del default, other
+    torch.cuda.empty_cache()
+    return out
+
+
+def hits_agree(a, b, q, rows, row_of, tol: float) -> bool:
+    """Two engines' hit lists for query embedding ``q`` agree: equal
+    length, distances within ``tol`` slot by slot, and every hit of ``a``
+    carrying its own float64 distance to ``q`` within ``tol`` (so ids differ
+    only at near-ties); ``rows`` are the index rows, ``row_of`` maps a doc
+    id to its row."""
+    import numpy as np
+
+    da = np.array([h["distance"] for h in a])
+    if len(a) != len(b) or not np.allclose(da, [h["distance"] for h in b], rtol=0, atol=tol):
+        return False
+    own = ((rows[[row_of[h["id"]] for h in a]].astype(np.float64)
+            - q.astype(np.float64)) ** 2).sum(-1)
+    return bool(np.allclose(own, da, rtol=0, atol=tol))
+
+
+def sharded_slice_run(torch, U, mesh, workdir: Path) -> dict:
+    """The slice's 4,096 documents in a one-card IVF manager (nlist 64);
+    their embeddings in a ``ShardedIVFIndex`` on the same centroids, saved
+    with the manager's doc ids and loaded by ``VectorStore(mesh=...)``;
+    ``QueryEngine.search`` over it for the slice's requests, with K2 on
+    every shard at the default nprobe, gives the one-card engine's answers
+    there, and again probing every list on the exact chunk body (where list
+    membership, window and spill tiers cannot matter); held by
+    ``hits_agree``, to rtol x (max ||q||^2 + max ||x||^2): the two layouts
+    sum in other orders."""
+    from rag_faiss_embedding_tpu_torch.core.config import Config
+    from rag_faiss_embedding_tpu_torch.index import VectorStore
+    from rag_faiss_embedding_tpu_torch.models.generator import AnswerGenerator
+    from rag_faiss_embedding_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+    from rag_faiss_embedding_tpu_torch.rag import QueryEngine, RAGManager
+
+    cuda = torch.device("cuda")
+    docs = corpus_documents(N_DOCS, SEED)
+    _, queries, batch_queries = slice_requests(docs)
+    cfg = Config(base_dir=workdir / "slice", model_name="chip-smoke-random-init",
+                 index_kind="ivf", ivf_nlist=64)
+    manager = RAGManager(config=cfg, device=cuda)
+    manager.initialize_database(docs)
+    one = manager.vector_store.index
+    nprobe = one.nprobe
+    vecs, ids = one.vectors(return_ids=True)
+    sharded = ShardedIVFIndex(IVF_DIM, mesh, nlist=one.nlist, nprobe=one.nprobe,
+                              dtype=one.dtype_name)
+    sharded.centroids = one.centroids.clone()
+    sharded.build(vecs, row_ids=ids)
+    path = workdir / "slice_sharded.idx"
+    store = VectorStore(dimension=IVF_DIM, index_path=path, index=sharded, device=cuda)
+    store.doc_ids = list(manager.vector_store.doc_ids)
+    store.save_index()
+    loaded = VectorStore(index_path=path, mesh=mesh, device=cuda)
+    gen = AnswerGenerator(backend="extractive")
+    engine = QueryEngine(manager.db, loaded, manager.embedder, generator=gen)
+    one_engine = QueryEngine(manager.db, manager.vector_store, manager.embedder, generator=gen)
+    texts = queries + batch_queries
+    U.union_scan.launches = 0  # the sharded engine's requests
+    answers = [engine.search(t, top_k=5) for t in texts]
+    torch.cuda.synchronize()
+    k2 = U.union_scan.launches
+    if k2 != loaded.index.n_dev * len(texts) or any(len(a) != 5 for a in answers):
+        raise AssertionError(f"sharded engine: {k2} K2 launches for {len(texts)} requests")
+    embs = [manager.embedder.embed_query(t) for t in texts]
+    row_of = {d: p for p, d in enumerate(store.doc_ids)}
+    tol = RTOL["float32"] * (max(float((e.astype("float64") ** 2).sum()) for e in embs)
+                             + float((vecs.astype("float64") ** 2).sum(1).max()))
+    at_default = [one_engine.search(t, top_k=5) for t in texts]
+    kernel_vs_one = sum(not hits_agree(a, b, e, vecs, row_of, tol)
+                        for a, b, e in zip(answers, at_default, embs))
+    if kernel_vs_one:
+        raise AssertionError(f"{kernel_vs_one} sharded answers at the default nprobe differ "
+                             "from the one-card engine's")
+    for i in (loaded.index, one):
+        i.backend, i.nprobe = "xla", i.nlist
+    plain = [engine.search(t, top_k=5) for t in texts]
+    reference = [one_engine.search(t, top_k=5) for t in texts]
+    differ = sum(not hits_agree(a, b, e, vecs, row_of, tol)
+                 for a, b, e in zip(plain, reference, embs))
+    if differ:
+        raise AssertionError(f"{differ} sharded answers differ from the one-card engine's")
+    manager.cleanup()
+    return {"documents": len(docs), "requests": len(texts), "k2_launches": k2,
+            "shards": loaded.index.n_dev, "window": loaded.index._window,
+            "nprobe": nprobe, "value_tolerance": tol, "full_probe_answers_equal_one_card": True,
+            "default_nprobe_answers_equal_one_card": True,
+            "id_mismatch_full_probe": sum(x["id"] != y["id"] for a, b in zip(plain, reference)
+                                          for x, y in zip(a, b))}
+
+
+def sharded_phase(torch, F, U, PD, coarse, workdir: Path) -> dict:
+    mesh = sharded_mesh(torch)
+    print(f"sharded mesh: {mesh} over {torch.cuda.device_count()} visible device(s)",
+          flush=True)
+    t0 = time.perf_counter()
+    flat = sharded_flat_run(torch, F, mesh)
+    flat["run_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ivf = sharded_ivf_run(torch, F, U, PD, mesh, coarse, workdir)
+    ivf["run_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sl = sharded_slice_run(torch, U, mesh, workdir)
+    sl["run_s"] = time.perf_counter() - t0
+    return {"phase": "sharded", "mesh": mesh.shape,
+            "mesh_devices": [str(d) for d in mesh.devices.flat],
+            "device_count": torch.cuda.device_count(), "flat": flat, "ivf": ivf, "slice": sl,
+            "path_launches": {"flat_scan": flat["path_launches"],
+                              "union_scan_v1": ivf["path_launches"]["union_scan_v1"]
+                              + sl["k2_launches"],
+                              "pq_decode": ivf["path_launches"]["pq_decode"]}}
+
+
 # ----------------------------------------------------------------- phase 10
 def bound(bytes_moved: float, flops: float, dtype: str):
     """The least time the card could take for the work, in ms, and what
@@ -2950,6 +3443,9 @@ def main() -> int:
     chunked = chunked_phase(torch, F, U, PD, coarse)
     emit(chunked)
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir:
+        sharded = sharded_phase(torch, F, U, PD, coarse, Path(workdir))
+    emit(sharded)
+    with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir:
         ivf_trace, ivf_sl = ivf_slice_phase(torch, Path(workdir))
     emit(ivf_sl)
     emit(ivf_trace)
@@ -2981,18 +3477,21 @@ def main() -> int:
                   "serve": serve["flat"]["flat_scan_launches"]
                   + serve["flat"]["sequential_launches"],
                   "chunked_truth": chunked["path_launches"]["flat_scan"],
-                  "train": train["path_launches"]["flat_scan"]}
+                  "train": train["path_launches"]["flat_scan"],
+                  "sharded": sharded["path_launches"]["flat_scan"]}
     v1_paths = {"ivf_slice": ivf_sl["union_scan_v1_launches"],
                 "serve": serve["ivf"]["union_scan_launches"][1],
-                "chunked_bf16": chunked["path_launches"]["union_scan_v1"]}
+                "chunked_bf16": chunked["path_launches"]["union_scan_v1"],
+                "sharded": sharded["path_launches"]["union_scan_v1"]}
     pq_paths = {"pq_slice": pq_sl["pq_decode_launches"],
-                "chunked": chunked["path_launches"]["pq_decode"]}
+                "chunked": chunked["path_launches"]["pq_decode"],
+                "sharded": sharded["path_launches"]["pq_decode"]}
     kernels = [{
         "name": "flat_scan", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": sum(flat_paths.values()),
         "paths": flat_paths,
-        "max_abs_err": max(max_err, *(v["max_abs_err"]
-                                      for v in sl["main_path_kernel_times"].values())),
+        "max_abs_err": max(max_err, sharded["flat"]["max_abs_err"],
+                           *(v["max_abs_err"] for v in sl["main_path_kernel_times"].values())),
         "ms": flat_q1["ms"], "plain_ms": flat_q1["plain_ms"],
         **achieved(flat_work(1, flat_q1["N"], flat_q1["D"], flat_q1["k"]), flat_q1["ms"]),
         "library_ms": None,
@@ -3000,7 +3499,9 @@ def main() -> int:
         "name": "union_scan v1", "route": "cuda", "source": UNION_SOURCE,
         "replaces": UNION_REPLACES[1], "launches": sum(v1_paths.values()),
         "paths": v1_paths,
-        "max_abs_err": max(union_err[1], ivf_sl["max_abs_err"]),
+        "max_abs_err": max(union_err[1], ivf_sl["max_abs_err"],
+                           *(c["max_abs_err"] for c in sharded["ivf"]["bfloat16"][
+                               "shard_kernel_cases"])),
         "ms": v1["ms"], "plain_ms": v1["plain_ms"],
         **achieved(v1, v1["ms"]),
         "library_ms": None,
@@ -3013,7 +3514,8 @@ def main() -> int:
     }, {
         "name": "pq_decode", "route": "cuda", "source": PQ_SOURCE,
         "replaces": PQ_REPLACES, "launches": sum(pq_paths.values()), "paths": pq_paths,
-        "max_abs_err": max(pq_err, *(pq_sl[k]["max_abs_err"] for k in ("pq", "ivf_pq"))),
+        "max_abs_err": max(pq_err, sharded["ivf"]["pq"]["shard_decode"]["max_abs_err"],
+                           *(pq_sl[k]["max_abs_err"] for k in ("pq", "ivf_pq"))),
         "ms": pq_q1["ms"], "plain_ms": pq_q1["plain_ms"],
         **achieved({"bytes": pq_q1["bytes"], "flops": 0, "dtype": pq_q1["dtype"]}, pq_q1["ms"]),
         "library_ms": pq_q1["library_ms"],

@@ -15,11 +15,18 @@ module here has its counterpart there:
   models/    MiniLM ``nn.Module``, Flax-param conversion, tokenizer,
              embedding pipeline, answer generator
   rag/       QueryEngine, RAGManager
+  parallel/  sharded search over a device mesh (``sharded``,
+             ``sharded_ivf``), training on one card (``train``,
+             ``checkpoint``)
+  serve/, cli/, ingest/
+             the HTTP server and its client, the command lines, HTML
+             ingestion
   benchmarks/  the prototype and probe scripts of the fused union scan
              (``fused_proto``, ``kernel_probe``)
   core/, store/, utils/, native/
-             copies of the JAX package's host modules (config, logging,
-             the SQLite store, text utilities, the C++ WordPiece tokenizer)
+             the device mesh (``core/mesh``), and copies of the JAX
+             package's host modules (config, logging, the SQLite store,
+             text utilities, the C++ WordPiece tokenizer)
 
 The package imports nothing of the JAX package: it carries its own copies of
 the host modules it needs.

@@ -9,15 +9,14 @@ ids without the sidecar, ``remove_doc_ids`` and ``allowed_doc_ids``
 filtering. The files are the JAX package's format: each package loads the
 other's.
 
-The "flat" (float32, bfloat16, int8), "ivf" (dense and IVF-PQ) and "pq"
-index kinds are ported. An int8 flat file with a bf16 shadow reloads with
-selector "rerank" and its shadow (the JAX store reloads it as "exact" and
-drops the shadow). A "sharded_flat" file (the JAX ``ShardedFlatIndex``)
-holds ``FlatIndex``'s payload, so it loads as a one-card ``FlatIndex``,
-tombstones included, as the JAX store loads it over one device; a re-save
-from the port writes kind "flat", which the JAX store loads too.
-"sharded_ivf" comes with the multi-GPU tier. ``import_faiss`` reads a
-reference FAISS flat binary (``index/faiss_import``).
+Every index kind of the JAX package loads: "flat" (float32, bfloat16,
+int8), "ivf" (dense and IVF-PQ), "pq", and the sharded kinds
+"sharded_flat" (``parallel.sharded.ShardedFlatIndex``) and "sharded_ivf"
+(``parallel.sharded_ivf.ShardedIVFIndex``), which load onto ``mesh``: by
+default every visible card for a CUDA store, one CPU device for a CPU store.
+An int8 flat file with a bf16 shadow reloads with selector "rerank" and its
+shadow (the JAX store reloads it as "exact" and drops the shadow).
+``import_faiss`` reads a reference FAISS flat binary (``index/faiss_import``).
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.logging import get_logger
+from ..core.mesh import Mesh, make_mesh
 
 from .faiss_import import import_faiss_index
 from .flat import FlatIndex
@@ -37,11 +37,6 @@ from .ivf import IVFFlatIndex
 from .pq import PQIndex
 
 logger = get_logger(__name__)
-
-# index kinds of the JAX package that this port does not load yet
-_LATER_KINDS = {
-    "sharded_ivf": "the multi-GPU tier",
-}
 
 
 class VectorStore:
@@ -53,11 +48,14 @@ class VectorStore:
         dtype: str = "float32",
         index: Optional[FlatIndex | IVFFlatIndex | PQIndex] = None,
         selector: str = "exact",
+        mesh: Optional[Mesh] = None,
         device: Optional[torch.device | str] = None,
     ):
         self.dimension = dimension
         self.metric = metric
         self.index_path = Path(index_path)
+        # the mesh a sharded index kind loads onto (None: see _load_mesh)
+        self._mesh = mesh
         self.doc_ids: List[int] = []
         self.index = index if index is not None else FlatIndex(
             dimension, metric=metric, dtype=dtype, selector=selector,
@@ -182,10 +180,7 @@ class VectorStore:
         with np.load(path, allow_pickle=False) as z:
             state = {k: z[k] for k in z.files}
         kind = str(state["kind"])
-        if kind in _LATER_KINDS:
-            raise NotImplementedError(
-                f"index kind {kind!r} is not ported yet ({_LATER_KINDS[kind]})")
-        if kind in ("flat", "sharded_flat"):
+        if kind == "flat":
             self.index = FlatIndex.from_state_dict(
                 {k: (v if k == "vectors" else v.item() if v.ndim == 0 else v)
                  for k, v in state.items()},
@@ -195,6 +190,14 @@ class VectorStore:
             self.index = IVFFlatIndex.from_state_dict(state, device=self.device)
         elif kind == "pq":
             self.index = PQIndex.from_state_dict(state, device=self.device)
+        elif kind == "sharded_flat":
+            from ..parallel.sharded import ShardedFlatIndex
+
+            self.index = ShardedFlatIndex.from_state_dict(state, mesh=self._load_mesh())
+        elif kind == "sharded_ivf":
+            from ..parallel.sharded_ivf import ShardedIVFIndex
+
+            self.index = ShardedIVFIndex.from_state_dict(state, mesh=self._load_mesh())
         else:
             raise ValueError(f"unknown index kind {kind!r}")
         self.dimension = self.index.dim
@@ -207,6 +210,15 @@ class VectorStore:
             self.doc_ids = list(range(self.index.ntotal))
             logger.warning("no mapping sidecar; using sequential ids")
         logger.info("loaded index from %s (%d vectors)", path, self.ntotal)
+
+    def _load_mesh(self) -> Mesh:
+        """The mesh given, else every visible card on a "db" axis for a CUDA
+        store and one device for a CPU store."""
+        if self._mesh is not None:
+            return self._mesh
+        if self.device.type == "cpu":
+            return make_mesh({"db": 1}, devices=[self.device])
+        return make_mesh()
 
     def reset(self) -> None:
         self.index.reset()

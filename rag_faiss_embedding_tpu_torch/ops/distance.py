@@ -91,6 +91,15 @@ def small_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals, idxs.to(torch.int32)
 
 
+def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k along the last axis, ties to the lowest index, for any k:
+    ``small_topk`` up to 16, a stable descending sort above."""
+    if k <= 16:
+        return small_topk(x, k)
+    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k].to(torch.int32)
+
+
 def merge_topk(vals_a: torch.Tensor, idx_a: torch.Tensor,
                vals_b: torch.Tensor, idx_b: torch.Tensor,
                k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -242,7 +242,8 @@ def flat_search(
         fill = float("inf") if metric == "L2" else float("-inf")
         return (torch.full((nq, k), fill, device=db.device),
                 torch.full((nq, k), -1, dtype=torch.int32, device=db.device))
-    return _kernel_search(q, db, db_sq, dead, n_rows, k_eff, k, metric, path_id)
+    with torch.cuda.device(db.device):  # launch on the card that holds the rows
+        return _kernel_search(q, db, db_sq, dead, n_rows, k_eff, k, metric, path_id)
 
 
 flat_search.launches = 0

@@ -43,7 +43,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .distance import NEG_INF, merge_topk, small_topk
+from .distance import NEG_INF, merge_topk
+from .distance import stable_topk as _topk
 from .pq_decode import decode as pq_decode_kernel, decode_reference as pq_decode_plain
 from .quantize import int8_dots, quantize_rows
 from .union_scan import (
@@ -54,14 +55,6 @@ _STEP_BYTES_BUDGET = 1 << 30
 _COARSE_APPROX_MIN_NLIST = 2048
 _RANK_INF = 1 << 30
 logger = logging.getLogger(__name__)
-
-
-def _topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k along the last axis, ties to the lowest index."""
-    if k <= 16:
-        return small_topk(x, k)
-    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
-    return vals[:, :k], idx[:, :k].to(torch.int32)
 
 
 def default_union_cap(nlist: int, nprobe: int) -> int:

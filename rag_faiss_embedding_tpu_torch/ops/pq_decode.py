@@ -90,9 +90,10 @@ def decode(codebooks: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     lib = load()
-    err = lib.rfe_pq_decode(
-        codes.data_ptr(), codebooks.data_ptr(), out.data_ptr(), n, m, ksub, dsub,
-        _ESIZE[codebooks.dtype], torch.cuda.current_stream(codes.device).cuda_stream)
+    with torch.cuda.device(codes.device):  # launch on the card that holds the codes
+        err = lib.rfe_pq_decode(
+            codes.data_ptr(), codebooks.data_ptr(), out.data_ptr(), n, m, ksub, dsub,
+            _ESIZE[codebooks.dtype], torch.cuda.current_stream(codes.device).cuda_stream)
     if err != 0:
         raise RuntimeError("pq_decode kernel launch failed: "
                            + lib.rfe_pq_decode_error_string(err).decode())

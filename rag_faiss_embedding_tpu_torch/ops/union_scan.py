@@ -333,11 +333,13 @@ def union_scan(qs, u_all, codes3, sorted_sq, sorted_ids, *, window: int,
     for t in (qs, u_all, sorted_sq, sorted_ids):
         if t.device != codes3.device:
             raise ValueError("union_scan operands must share one device")
-    # the kernel folds variant 2's dead rows into the norms as it stages them
-    return _kernel_scan(_variant_queries(qs, metric, variant).contiguous(),
-                        u_all.contiguous(), codes3.contiguous(),
-                        sorted_sq.float().contiguous(), sorted_ids.contiguous(),
-                        window, cap, metric, variant, ktop)
+    # the kernel folds variant 2's dead rows into the norms as it stages
+    # them; it launches on the card that holds the lists
+    with torch.cuda.device(codes3.device):
+        return _kernel_scan(_variant_queries(qs, metric, variant).contiguous(),
+                            u_all.contiguous(), codes3.contiguous(),
+                            sorted_sq.float().contiguous(), sorted_ids.contiguous(),
+                            window, cap, metric, variant, ktop)
 
 
 union_scan.launches = 0

@@ -331,11 +331,13 @@ def test_card_index_serves_k_above_kmax(masked):
 
 def test_jax_saved_sharded_flat_loads_as_flat(rng, tmp_path):
     """A JAX ``ShardedFlatIndex`` on a one-device mesh, 100 rows and one
-    removed doc id, saved by the JAX ``VectorStore``: the port loads it as a
-    ``FlatIndex`` with its tombstone, searches to the JAX ids and distances,
-    and re-saves it as kind "flat", which JAX loads again."""
+    removed doc id, saved by the JAX ``VectorStore``: the port loads it as
+    its own ``ShardedFlatIndex`` (a CPU store with no mesh: one CPU shard)
+    with its tombstone, searches to the JAX ids and distances, and re-saves
+    it as kind "sharded_flat", which JAX loads again."""
     from rag_faiss_embedding_tpu.core.mesh import make_mesh
     from rag_faiss_embedding_tpu.parallel import ShardedFlatIndex
+    from rag_faiss_embedding_tpu_torch.parallel import ShardedFlatIndex as TSharded
 
     vecs = rng.standard_normal((100, 16)).astype(np.float32)
     doc_ids = list(range(1000, 1100))
@@ -347,7 +349,7 @@ def test_jax_saved_sharded_flat_loads_as_flat(rng, tmp_path):
     assert str(np.load(tmp_path / "sh.tpu")["kind"]) == "sharded_flat"
 
     tstore = TStore(dimension=16, index_path=tmp_path / "sh.tpu", device="cpu")
-    assert isinstance(tstore.index, TFlat)
+    assert isinstance(tstore.index, TSharded) and tstore.index.n_dev == 1
     assert tstore.ntotal == 100 and tstore.nlive == 99 and tstore.doc_ids == jstore.doc_ids
     q = vecs[38:46] + 0.01
     jd, ji = jstore.search(q, k=5)
@@ -356,10 +358,10 @@ def test_jax_saved_sharded_flat_loads_as_flat(rng, tmp_path):
     for a, b in zip(td, jd):
         np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
 
-    tstore.save_index(tmp_path / "flat.tpu")
-    assert str(np.load(tmp_path / "flat.tpu")["kind"]) == "flat"
-    again = JStore(dimension=16, index_path=tmp_path / "flat.tpu")
-    again.index._use_pallas = False
+    tstore.save_index(tmp_path / "resaved.tpu")
+    assert str(np.load(tmp_path / "resaved.tpu")["kind"]) == "sharded_flat"
+    again = JStore(dimension=16, index_path=tmp_path / "resaved.tpu")
+    assert isinstance(again.index, ShardedFlatIndex) and again.nlive == 99
     assert again.search(q, k=5)[1] == ji
 
 
@@ -435,10 +437,13 @@ def test_vector_store_sequential_fallback_and_kinds(rng, tmp_path):
     assert tstore.doc_ids == [0, 1, 2, 3, 4]
     _, ids = tstore.search(vecs[3], k=1)
     assert ids == [3]
-    # a JAX-saved "pq" index loads by its kind; "sharded_ivf" still raises,
-    # naming its tier
+    # a JAX-saved "pq" index loads by its kind, and so does a JAX-saved
+    # "sharded_ivf" one (onto one CPU shard: a CPU store with no mesh)
+    from rag_faiss_embedding_tpu.core.mesh import make_mesh
     from rag_faiss_embedding_tpu.index.pq import PQIndex as JPQ
+    from rag_faiss_embedding_tpu.parallel.sharded_ivf import ShardedIVFIndex as JSIVF
     from rag_faiss_embedding_tpu_torch.index.pq import PQIndex as TPQ
+    from rag_faiss_embedding_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex as TSIVF
 
     pq = JPQ(8, m=4, ksub=4, compute_dtype="f32", train_iters=2)
     pq.add(vecs)
@@ -447,6 +452,15 @@ def test_vector_store_sequential_fallback_and_kinds(rng, tmp_path):
     assert isinstance(tstore.index, TPQ) and tstore.ntotal == 5
     assert tstore.doc_ids == [0, 1, 2, 3, 4]
     np.testing.assert_array_equal(tstore.index.vectors(), pq.vectors())
-    np.savez(tmp_path / "sh.npz", kind="sharded_ivf", dim=8, metric="L2")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tstore.load_index(tmp_path / "sh.npz")
+    more = rng.standard_normal((64, 8)).astype(np.float32)
+    sivf = JSIVF(8, make_mesh({"db": 2}), nlist=4, nprobe=4, train_iters=3)
+    sivf.build(more)
+    np.savez(tmp_path / "sh.npz", **{k: np.asarray(v) for k, v in sivf.state_dict().items()})
+    tstore.load_index(tmp_path / "sh.npz")
+    assert isinstance(tstore.index, TSIVF) and tstore.index.n_dev == 1
+    assert tstore.ntotal == 64 and tstore.doc_ids == list(range(64))
+    d, ids = tstore.search(more[:3], k=4)
+    jd, jids = sivf.search(more[:3], 4)
+    assert ids == np.asarray(jids).tolist() and [row[0] for row in ids] == [0, 1, 2]
+    for a, b in zip(d, np.asarray(jd)):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)

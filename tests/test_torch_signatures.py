@@ -32,10 +32,7 @@ FLAX_FIELDS = {"parent", "name"}
 
 # "module:qualname": (parameters or members the port lacks, parameters the
 # port adds beyond ALLOWED_EXTRA, the ROADMAP Queue 1 item that closes it)
-GAPS = {
-    "index.vector_store:VectorStore.__init__": ({"mesh"}, set(),
-                                                "Queue 1 item 7, multi-GPU"),
-}
+GAPS = {}
 
 # public names a port module lacks against its JAX twin: "module": (names,
 # the ROADMAP Queue 1 item that closes it)
@@ -189,7 +186,8 @@ def test_closed_gaps_stay_closed():
     ``exact_search`` and ``pq_search`` and ``recall_target`` /
     ``rerank_shadow`` of ``FlatIndex``, ``VectorStore.import_faiss`` and
     ``MiniLMConfig.compute_dtype``; then ``IVFFlatIndex.build_chunked`` and
-    ``MiniLMEncoder.init_params``."""
+    ``MiniLMEncoder.init_params``; then ``VectorStore.__init__``'s ``mesh``
+    with the sharded modules."""
     from rag_faiss_embedding_tpu_torch.index.flat import FlatIndex
     from rag_faiss_embedding_tpu_torch.index.vector_store import VectorStore
     from rag_faiss_embedding_tpu_torch.models.minilm import MiniLMConfig
@@ -209,4 +207,8 @@ def test_closed_gaps_stay_closed():
     assert _params(IVFFlatIndex.build_chunked) == ["self", "source", "n", "chunk_size",
                                                    "train_rows"]
     assert _params(MiniLMEncoder.init_params) == ["self", "rng", "max_len"]
+    # sharded search: the store's mesh and the mesh module's names
+    assert _params(VectorStore.__init__)[-2:] == ["mesh", "device"]
+    assert {("core.mesh", "make_mesh"), ("parallel.sharded", "ShardedFlatIndex"),
+            ("parallel.sharded_ivf", "ShardedIVFIndex")} <= set(ITEMS)
     assert len(ITEMS) > 20
