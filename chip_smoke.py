@@ -156,7 +156,13 @@ Phases, one JSON object per line:
     model's largest), every weight within
     lr / 100 but where the gradient is below 1e-6 (the attention key
     biases, whose exact gradient is zero, among them): there within 1.01 x
-    lr of its start); ``cli.train.train``
+    lr of its start); the same first step and two more on a {"data": 2,
+    "model": 2} mesh over four repeated positions of the card (data and
+    tensor parallel), held the same way to the one-card step on the card,
+    the losses of all three within 1e-4 relative, CUDA-event ms per step of
+    both in turns; a checkpoint saved from the mesh restored on one card bit
+    for bit, its next step held to the mesh's; ``cli.train.train`` over the
+    four positions logging JAX's mesh; ``cli.train.train``
     at the CLI's defaults (200 steps, batch 32, max_len 128, lr 2e-5) with a
     checkpoint and exported params: ms per step, sequences and tokens per
     second, peak device memory, the loss falling; two more steps from the
@@ -2376,61 +2382,188 @@ CLI_TRAIN_STEPS = 20
 GRAD_FLOOR = 1e-6  # 100 x AdamW's eps
 
 
-def one_step_card_vs_cpu(torch, T, cfg, params, batch) -> dict:
-    """One training step from the same parameters and batch on the card and
-    on the CPU. The loss within 1e-4 relative; each gradient tensor (read
-    back from AdamW's first moment, 0.1 x g after one step) within 1e-4 of
-    its largest entry, or of 1e-2 x the model's largest where that is more
-    (a tensor whose exact gradient is zero holds the rounding of terms that
-    cancel); every weight within lr / 100, but where a gradient
-    is below GRAD_FLOOR (100 x Adam's eps) on either device: Adam's first
-    step is lr x g / (|g| + eps), so there float32 rounding in g (the
-    attention key biases' whole gradient: a softmax does not see a shift
-    common to a query's logits) moves the weight by up to lr. Those are
-    held to 1.01 x lr of their start on both devices, and counted."""
-    from rag_faiss_embedding_tpu_torch.models.convert import load_flax_params
+def step_tensors(state) -> tuple:
+    """A training state's weights and AdamW first moments in the one-card
+    layout (a mesh state gathers its slices), copied to the host."""
+    host = lambda t: t.detach().to("cpu", copy=True).float()
+    weights = {k: host(v) for k, v in state.params.state_dict().items()}
+    opt = state.opt_state.state_dict()["state"]
+    return weights, {k: host(opt[i]["exp_avg"]) for i, k in enumerate(weights)}
 
-    start = load_flax_params(params)
-    out = []
-    for dev in (torch.device("cpu"), torch.device("cuda")):
-        run, state = T.make_train_step(cfg, learning_rate=TRAIN_LR, params=params, device=dev)
-        t0 = time.perf_counter()
-        state, m = run(state, batch)
-        loss = float(m["loss"])
-        opt = state.opt_state.state
-        out.append((loss, time.perf_counter() - t0,
-                    {k: p.detach().cpu() for k, p in state.params.named_parameters()},
-                    {k: (opt[p]["exp_avg"] / 0.1).cpu()
-                     for k, p in state.params.named_parameters()}))
-    (l_cpu, s_cpu, w_cpu, g_cpu), (l_card, s_card, w_card, g_card) = out
-    rel = abs(l_card - l_cpu) / abs(l_cpu)
+
+def hold_step(torch, before, a, b) -> dict:
+    """Two states one step on from one state: ``before`` is its (weights,
+    first moments, None at the start), ``a`` and ``b`` each (loss, weights,
+    first moments). The gradient is read back from the moments (m = 0.9 m'
+    + 0.1 g). The loss within 1e-4 relative; each gradient tensor within
+    1e-4 of its largest entry, or of 1e-2 x the model's largest where that
+    is more (a tensor whose exact gradient is zero holds the rounding of
+    terms that cancel); every weight within lr / 100, but where a gradient
+    is below GRAD_FLOOR (100 x Adam's eps) in either state: Adam's step is
+    lr x m / (sqrt(v) + eps), so there float32 rounding in g (the attention
+    key biases' whole gradient: a softmax does not see a shift common to a
+    query's logits) moves the weight by up to lr. Those are held to 1.01 x
+    lr of where they were in both states, and counted."""
+    w0, m0 = before
+    grads = []
+    for _, _, m in (a, b):
+        grads.append({k: (m[k] - (0.9 * m0[k] if m0 else 0.0)) / 0.1 for k in m})
+    (l_a, w_a, _), (l_b, w_b, _) = a, b
+    g_a, g_b = grads
+    rel = abs(l_b - l_a) / abs(l_a)
     worst = {"grad_rel": (0.0, None), "weight": (0.0, None), "noise_move": (0.0, None)}
     n_noise = 0
-    g_model = max(float(g.abs().max()) for g in g_cpu.values())
-    for name in w_cpu:
+    g_model = max(float(g.abs().max()) for g in g_a.values())
+    for name in w_a:
         # a tensor's own largest entry, or the rounding of the model's
         # largest gradient terms where they cancel (the key biases)
-        scale = max(float(g_cpu[name].abs().max()), 1e-2 * g_model)
-        g_err = float((g_card[name] - g_cpu[name]).abs().max()) / scale
-        noise = torch.minimum(g_card[name].abs(), g_cpu[name].abs()) < GRAD_FLOOR
+        scale = max(float(g_a[name].abs().max()), 1e-2 * g_model)
+        g_err = float((g_b[name] - g_a[name]).abs().max()) / scale
+        noise = torch.minimum(g_b[name].abs(), g_a[name].abs()) < GRAD_FLOOR
         n_noise += int(noise.sum())
-        w_err = (w_card[name] - w_cpu[name]).abs()
-        move = max(float((w - start[name]).abs()[noise].max()) if noise.any() else 0.0
-                   for w in (w_card[name], w_cpu[name]))
+        w_err = (w_b[name] - w_a[name]).abs()
+        move = max(float((w - w0[name]).abs()[noise].max()) if noise.any() else 0.0
+                   for w in (w_b[name], w_a[name]))
         w_err = float(w_err[~noise].max()) if (~noise).any() else 0.0
         for key, val in (("grad_rel", g_err), ("weight", w_err), ("noise_move", move)):
             if val > worst[key][0]:
                 worst[key] = (val, name)
     if rel > 1e-4 or worst["grad_rel"][0] > 1e-4 or worst["weight"][0] > TRAIN_LR / 100 \
             or worst["noise_move"][0] > 1.01 * TRAIN_LR:
-        raise AssertionError(f"card vs CPU step: loss rel {rel}, worst {worst}")
-    return {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel_diff": rel,
-            "grad_max_rel_diff": worst["grad_rel"], "weight_max_abs_diff": worst["weight"],
-            "weight_bound": TRAIN_LR / 100, "grad_floor": GRAD_FLOOR,
-            "weights_below_grad_floor": n_noise,
-            "weights": sum(w.numel() for w in w_cpu.values()),
-            "below_floor_max_move": worst["noise_move"], "below_floor_bound": 1.01 * TRAIN_LR,
+        raise AssertionError(f"one step: loss rel {rel}, worst {worst}")
+    return {"loss_rel_diff": rel, "grad_max_rel_diff": worst["grad_rel"],
+            "weight_max_abs_diff": worst["weight"], "weight_bound": TRAIN_LR / 100,
+            "grad_floor": GRAD_FLOOR, "weights_below_grad_floor": n_noise,
+            "weights": sum(w.numel() for w in w_a.values()),
+            "below_floor_max_move": worst["noise_move"], "below_floor_bound": 1.01 * TRAIN_LR}
+
+
+def one_step_card_vs_cpu(torch, T, cfg, params, batch) -> dict:
+    """One training step from the same parameters and batch on the card and
+    on the CPU, held to each other by ``hold_step``."""
+    from rag_faiss_embedding_tpu_torch.models.convert import load_flax_params
+
+    out = []
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        run, state = T.make_train_step(cfg, learning_rate=TRAIN_LR, params=params, device=dev)
+        t0 = time.perf_counter()
+        state, m = run(state, batch)
+        loss = float(m["loss"])
+        out.append((loss, time.perf_counter() - t0, *step_tensors(state)))
+    (l_cpu, s_cpu, w_cpu, m_cpu), (l_card, s_card, w_card, m_card) = out
+    held = hold_step(torch, (load_flax_params(params), None), (l_cpu, w_cpu, m_cpu),
+                     (l_card, w_card, m_card))
+    return {"loss_card": l_card, "loss_cpu": l_cpu, **held,
             "step_s_card_first": s_card, "step_s_cpu": s_cpu}
+
+
+MESH_SHAPE = {"data": 2, "model": 2}  # on four repeated positions of the one card
+MESH_TIMED_STEPS = 10
+
+
+def timed_steps(torch, run, state, batches) -> tuple:
+    """Steps over ``batches``, each between CUDA events: (state, losses,
+    ms per step)."""
+    losses, events = [], []
+    for b in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = run(state, b)
+        end.record()
+        events.append((start, end))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    return state, losses, [s.elapsed_time(e) for s, e in events]
+
+
+def mesh_train_phase(torch, T, cfg, params, batches, docs, workdir: Path) -> dict:
+    """Data- and tensor-parallel training on a ``MESH_SHAPE`` mesh over
+    four repeated positions of the card, from the parameters and batches of
+    the one-card step: the first step held to the one-card step on the card
+    by ``hold_step``, the next two's losses within 1e-4 relative, then
+    MESH_TIMED_STEPS more of each, timed by CUDA events; a checkpoint saved
+    from the mesh restored on one card (the state bit for bit) and its next
+    step held to the mesh's next step by ``hold_step``; ``cli.train.train``
+    over four repeated positions builds and logs JAX's {data 2, model 2}."""
+    import logging
+
+    from rag_faiss_embedding_tpu_torch.cli import train as cli_train
+    from rag_faiss_embedding_tpu_torch.core.mesh import make_mesh
+    from rag_faiss_embedding_tpu_torch.models.convert import load_flax_params
+    from rag_faiss_embedding_tpu_torch.parallel.checkpoint import TrainCheckpointer
+
+    cuda = torch.device("cuda")
+    mesh = make_mesh(MESH_SHAPE, devices=[cuda] * 4)
+    runs = {}
+    for label, where in (("one_card", {"device": cuda}), ("mesh", {"mesh": mesh})):
+        run, state = T.make_train_step(cfg, learning_rate=TRAIN_LR, params=params, **where)
+        state, first_loss, first_ms = timed_steps(torch, run, state, batches[:1])
+        after_first = (first_loss[0], *step_tensors(state))
+        state, losses, ms = timed_steps(torch, run, state, batches[1:3])
+        runs[label] = {"run": run, "state": state, "after_first": after_first,
+                       "losses": first_loss + losses, "ms": first_ms + ms}
+    one, on_mesh = runs["one_card"], runs["mesh"]
+    if not isinstance(on_mesh["state"].params, T.MeshEncoder):
+        raise AssertionError("the mesh step did not run on the mesh")
+    first = hold_step(torch, (load_flax_params(params), None), one["after_first"],
+                      on_mesh["after_first"])
+    rel = [abs(a - b) / abs(a) for a, b in zip(one["losses"], on_mesh["losses"])]
+    if max(rel) > 1e-4:
+        raise AssertionError(f"mesh vs one card: losses {on_mesh['losses']} / {one['losses']}")
+
+    # a checkpoint from the mesh, restored on one card
+    ckpt = TrainCheckpointer(workdir / "mesh_ckpt")
+    ckpt.save(on_mesh["state"])
+    run_one, template = T.make_train_step(cfg, learning_rate=TRAIN_LR, device=cuda)
+    restored = ckpt.restore(template)
+    w_saved, m_saved = step_tensors(on_mesh["state"])
+    w_rest, m_rest = step_tensors(restored)
+    if restored.step != 3 or any(not torch.equal(w_saved[k], w_rest[k]) or
+                                 not torch.equal(m_saved[k], m_rest[k]) for k in w_saved):
+        raise AssertionError("the mesh checkpoint did not restore bit for bit on one card")
+    nxt = batches[3 % len(batches)]
+    after = []
+    for run, state in ((on_mesh["run"], on_mesh["state"]), (run_one, restored)):
+        state, m = run(state, nxt)
+        after.append((float(m["loss"]), *step_tensors(state)))
+    resumed = hold_step(torch, (w_saved, m_saved), *after)
+    del restored, template
+
+    # steady ms per step, one card and mesh in turns
+    timed = {}
+    for label in ("one_card", "mesh", "mesh", "one_card"):
+        r = runs[label]
+        cycle = [batches[i % len(batches)] for i in range(MESH_TIMED_STEPS // 2)]
+        r["state"], _, ms = timed_steps(torch, r["run"], r["state"], cycle)
+        timed.setdefault(label, []).extend(ms)
+    del runs
+    torch.cuda.empty_cache()
+
+    # cli.train.train over four positions of the card
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = logging.getLogger("rag_faiss_embedding_tpu_torch.cli.train")
+    logger.addHandler(handler)
+    t0 = time.perf_counter()
+    try:
+        cli_train.train(docs[:512], steps=3, batch_size=TRAIN_BATCH, max_len=TRAIN_LEN,
+                        learning_rate=TRAIN_LR, vocab_size=TRAIN_VOCAB, device=[cuda] * 4)
+    finally:
+        logger.removeHandler(handler)
+    cli_s = time.perf_counter() - t0
+    logged = [r.getMessage() for r in records if r.getMessage().startswith("mesh:")]
+    if logged != [f"mesh: {MESH_SHAPE}"]:
+        raise AssertionError(f"cli.train over four positions logged {logged}")
+    return {"shape": MESH_SHAPE, "devices": [str(d) for d in mesh.devices.flat],
+            "first_step_vs_one_card": first, "loss_rel_diff_3_steps": rel,
+            "losses_mesh": on_mesh["losses"], "losses_one_card": one["losses"],
+            "ms_first_3_mesh": on_mesh["ms"], "ms_first_3_one_card": one["ms"],
+            "ms_per_step_median_mesh": statistics.median(timed["mesh"]),
+            "ms_per_step_median_one_card": statistics.median(timed["one_card"]),
+            "timed_steps_each": len(timed["mesh"]),
+            "checkpoint_mesh_to_one_card": {"bit_exact": True, "next_step": resumed},
+            "cli": {"logged": logged[0], "seconds": cli_s, "documents": 512, "steps": 3}}
 
 
 def train_phase(torch, F, workdir: Path) -> dict:
@@ -2460,8 +2593,14 @@ def train_phase(torch, F, workdir: Path) -> dict:
                                          vocab_size=TRAIN_VOCAB)
     vocab_s = time.perf_counter() - t0
     cfg = MiniLMConfig(vocab_size=tokenizer.vocab_size)
-    batch = next(cli_train.batch_iterator(pairs, tokenizer, TRAIN_BATCH, TRAIN_LEN, SEED))
+    first_batches = cli_train.batch_iterator(pairs, tokenizer, TRAIN_BATCH, TRAIN_LEN, SEED)
+    batch = next(first_batches)
     step_check = one_step_card_vs_cpu(torch, T, cfg, deterministic_params(cfg), batch)
+    t0 = time.perf_counter()
+    mesh_check = mesh_train_phase(torch, T, cfg, deterministic_params(cfg),
+                                  [batch] + list(itertools.islice(first_batches, 3)), docs,
+                                  workdir)
+    mesh_check["seconds"] = time.perf_counter() - t0
 
     # cli.train.train at the CLI's defaults, each step timed by CUDA events
     record = {"events": [], "loss": [], "state": None}
@@ -2578,7 +2717,7 @@ def train_phase(torch, F, workdir: Path) -> dict:
     self_hits = sum(h[0]["url"] == docs[i]["url"] for h, i in zip(singles, picks))
     manager.cleanup()
     return {"phase": "train", "encoder": dataclasses.asdict(tcfg), "vocab_train_s": vocab_s,
-            "one_step_card_vs_cpu": step_check,
+            "one_step_card_vs_cpu": step_check, "mesh": mesh_check,
             "train": {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "max_len": TRAIN_LEN,
                       "lr": TRAIN_LR, "wall_s": train_s, "ms_per_step_median": ms,
                       "ms_per_step_first": step_ms[0],
@@ -2833,9 +2972,11 @@ def sharded_ivf_run(torch, F, U, PD, mesh, coarse, workdir: Path) -> dict:
                 union_cap=disp["union_cap"], qc=disp["qc"], union_mode=disp["union_mode"])
             codes = idx._vecs[0].view(-1, idx._window, SHARDED_PQ_M)[u_all[0].long()]
             cb = idx._pq_operands()[0][0]
-            err, ms, plain_ms = decode_check(torch, PD, cb, codes.reshape(-1, SHARDED_PQ_M))
-            res["shard_decode"] = {"rows": codes.shape[0] * idx._window, "M": SHARDED_PQ_M,
-                                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            codes = codes.reshape(-1, SHARDED_PQ_M)
+            err, ms, plain_ms = decode_check(torch, PD, cb, codes)
+            res["shard_decode"] = {"rows": codes.shape[0], "M": SHARDED_PQ_M,
+                                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                   **decode_library(torch, PD, cb, codes)}
         one = IVFFlatIndex(IVF_DIM, nlist=IVF_NLIST, train_iters=10, rerank=False, device=cuda,
                            **kw)
         one.centroids, one.is_trained = coarse.clone(), True

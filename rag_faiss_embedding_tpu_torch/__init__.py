@@ -16,8 +16,8 @@ module here has its counterpart there:
              embedding pipeline, answer generator
   rag/       QueryEngine, RAGManager
   parallel/  sharded search over a device mesh (``sharded``,
-             ``sharded_ivf``), training on one card (``train``,
-             ``checkpoint``)
+             ``sharded_ivf``), training on one card or a mesh
+             (``train``, ``checkpoint``)
   serve/, cli/, ingest/
              the HTTP server and its client, the command lines, HTML
              ingestion

@@ -1,8 +1,8 @@
 """Contrastive training CLI: fine-tune the encoder on a corpus.
 
-Counterpart of ``rag_faiss_embedding_tpu/cli/train.py``, on one card (or the
-CPU with ``--device cpu``). Training pairs are self-supervised from the
-document store: (title + first sentence, full content) plus two random
+Counterpart of ``rag_faiss_embedding_tpu/cli/train.py``, over every visible
+card (or the CPU with ``--device cpu``). Training pairs are self-supervised
+from the document store: (title + first sentence, full content) plus two random
 crops of the same content, drawn from the numpy ``Generator`` exactly as the
 JAX CLI draws them, so one seed gives both packages the same pairs and the
 same token batches. InfoNCE over the batch (``parallel/train.py``),
@@ -11,7 +11,9 @@ exported as the Flax-layout ``encoder_params.npz`` that both packages'
 ``EmbeddingPipeline(params_path=...)`` load (``RAGManager`` picks it up from
 ``data_dir``), with the trained vocabulary beside it.
 
-One card: no data / model mesh, world size 1.
+The mesh is JAX's: n devices make ``{"data": n // m, "model": m}`` with m
+the first of 4 and 2 that divides n and is smaller than it, else 1 (1 card:
+1 x 1, 2: 2 x 1, 4: 2 x 2, 8: 2 x 4); ``parallel/train.py`` trains over it.
 """
 
 from __future__ import annotations
@@ -19,14 +21,14 @@ from __future__ import annotations
 import argparse
 import json
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .. import default_device
 from ..core.config import Config
 from ..core.logging import get_logger
+from ..core.mesh import _visible_cards, make_mesh
 from ..models.convert import export_params, to_flax_params
 from ..models.minilm import MiniLMConfig
 from ..models.tokenizer import WordPieceTokenizer
@@ -94,13 +96,20 @@ def train(
     seed: int = 0,
     log_every: int = 10,
     pooling: str = "mean",
-    device: Optional[torch.device | str] = None,
+    device: Optional[torch.device | str | Sequence] = None,
 ):
     """Run the contrastive training loop; returns (params as a Flax-layout
-    numpy tree, tokenizer)."""
+    numpy tree, gathered from the mesh, and the tokenizer). ``device``: one
+    device, a sequence of them (repeats allowed) to build the mesh over, or
+    None for every visible card (none raises)."""
     from ..parallel.train import make_train_step
 
-    device = torch.device(device) if device is not None else default_device()
+    if device is None:
+        devices = _visible_cards()
+    elif isinstance(device, (str, torch.device)):
+        devices = [torch.device(device)]
+    else:
+        devices = [torch.device(d) for d in device]
     rng = np.random.default_rng(seed)
     pairs = make_pairs(documents, rng)
     if not pairs:
@@ -110,9 +119,11 @@ def train(
         [p[0] for p in pairs] + [p[1] for p in pairs], vocab_size=vocab_size)
 
     cfg = cfg or MiniLMConfig(vocab_size=max(tokenizer.vocab_size, 128))
-    logger.info("world size 1 (%s): no data / model mesh", device)
-    run_step, state = make_train_step(cfg, learning_rate=learning_rate, pooling=pooling,
-                                      device=device)
+    n_dev = len(devices)
+    model_par = next((c for c in (4, 2) if n_dev % c == 0 and n_dev > c), 1)
+    mesh = make_mesh({"data": n_dev // model_par, "model": model_par}, devices=devices)
+    logger.info("mesh: %s", dict(mesh.shape))
+    run_step, state = make_train_step(cfg, mesh, learning_rate=learning_rate, pooling=pooling)
     ckpt = None
     if checkpoint_dir:
         from ..parallel.checkpoint import TrainCheckpointer
@@ -146,7 +157,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--checkpoint-dir", default=None)
     parser.add_argument("--params-out", default=None)
     parser.add_argument("--device", default=None,
-                        help="torch device (default: the CUDA card; 'cpu' only when asked)")
+                        help="one torch device (default: every visible CUDA card, on "
+                             "JAX's mesh; 'cpu' only when asked)")
     args = parser.parse_args(argv)
 
     config = Config.from_env(base_dir=args.base_dir)

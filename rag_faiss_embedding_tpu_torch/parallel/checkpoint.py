@@ -5,6 +5,13 @@ there), with ``torch.save``: one directory per step under ``directory``,
 written under a temporary name and renamed into place (a reader never sees
 a half-written step, as with orbax), the newest ``max_to_keep`` kept.
 
+A step is saved in the one-card layout whatever it was trained on: a
+``MeshEncoder`` and its ``MeshAdamW`` gather their slices in ``state_dict``.
+So a step saved on any mesh, or on one card, restores onto any mesh or one
+card: ``restore`` loads it into the template's modules, which put each slice
+on the template's devices, as JAX's restore puts each leaf back under the
+template's sharding.
+
 The two packages' checkpoints do not cross: the port cannot read orbax's
 files (no orbax on the card), nor JAX this package's. What crosses is the
 encoder's parameters, the ``encoder_params.npz`` of ``models.convert.
@@ -62,7 +69,8 @@ class TrainCheckpointer:
 
     def restore(self, template: TrainState, step: Optional[int] = None) -> TrainState:
         """Load a step into the template's encoder and optimizer (in place,
-        on their device) and return the restored state."""
+        on their devices: a mesh template splits it onto its slices) and
+        return the restored state."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")

@@ -36,10 +36,7 @@ GAPS = {}
 
 # public names a port module lacks against its JAX twin: "module": (names,
 # the ROADMAP Queue 1 item that closes it)
-MODULE_GAPS = {
-    "parallel.train": ({"param_sharding_rules", "shard_params"},
-                       "Queue 1 item 7, multi-GPU (the trainer's tensor-parallel layout)"),
-}
+MODULE_GAPS = {}
 
 
 def _shared_items():

@@ -8,19 +8,19 @@ biases, whose exact gradient is zero (see ``assert_params_close``). A JAX run's 
 optax's Adam moments and count, the step) carried into the port continues
 the same way. ``info_nce_loss`` is held to JAX's on the same embeddings
 (rtol 1e-6), ``init_params`` gives JAX's tree, and a mesh of more than one
-device is refused, naming the multi-GPU slice.
+device trains over it.
 """
 
 import jax
 import numpy as np
 import optax
-import pytest
 import torch
 
 from rag_faiss_embedding_tpu.core.mesh import make_mesh
 from rag_faiss_embedding_tpu.models.minilm import MiniLMConfig as JCfg
 from rag_faiss_embedding_tpu.models.minilm import MiniLMEncoder as JEnc
 from rag_faiss_embedding_tpu.parallel import train as jtrain
+from rag_faiss_embedding_tpu_torch.core.mesh import make_mesh as tmake_mesh
 from rag_faiss_embedding_tpu_torch.models.convert import deterministic_params, to_flax_params
 from rag_faiss_embedding_tpu_torch.models.minilm import MiniLMConfig as TCfg
 from rag_faiss_embedding_tpu_torch.models.minilm import MiniLMEncoder as TEnc
@@ -180,8 +180,18 @@ def test_init_params_tree_equals_jax():
 
 
 def test_mesh_of_more_than_one_device_names_the_multi_gpu_slice():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ttrain.make_train_step(TSMALL, make_mesh({"data": 2, "model": 1}), device="cpu")
+    """A mesh of two positions trains over them (the multi-GPU slice,
+    tests/test_torch_train_mesh.py): the same step as one card; a mesh of
+    one device keeps the one-card state."""
+    params = deterministic_params(TSMALL, seed=9)
+    mesh = tmake_mesh({"data": 2, "model": 1}, devices=[torch.device("cpu")] * 2)
+    run2, state2 = ttrain.make_train_step(TSMALL, mesh, learning_rate=LR, params=params)
+    run1, state1 = ttrain.make_train_step(TSMALL, learning_rate=LR, params=params, device="cpu")
+    assert isinstance(state2.params, ttrain.MeshEncoder)
+    state2, m2 = port_steps(state2, run2, fake_batch(), 2)
+    state1, m1 = port_steps(state1, run1, fake_batch(), 2)
+    assert_metrics_close(m2, m1)
+    assert_params_close(state2, to_flax_params(state1.params.state_dict(), TSMALL), params, 2)
     run, state = ttrain.make_train_step(TSMALL, one_device_mesh(), device="cpu")
     assert state.step == 0 and isinstance(state.opt_state, torch.optim.AdamW)
     group = state.opt_state.param_groups[0]
