@@ -56,7 +56,10 @@ Phases, one JSON object per line:
 8. pq_kernel: the PQ decode kernel against ``decode_reference`` on the same
    card tensors, bit for bit, over D = 384 with M 16 / 48 / 96 and D = 768
    with M 96, ksub 16 and 256, bf16 and f32 codebooks, N from 0 to
-   1,048,576, CUDA-event times of both. Then phase 6's 1M rows in
+   1,048,576: the rows its paths launch it on (``PQ_PATH_ROWS``, at M 48),
+   both sides of each end of the band of N where the plan stages the
+   codebook (``pq_decode.staged_rows``) and whole tiles +-1 row;
+   CUDA-event times of both. Then phase 6's 1M rows in
    ``PQIndex(384, m=48)``, ``IVFFlatIndex(384, nlist=8192, pq_m=48,
    balance="reassign", train_iters=10)`` and the same IVF-PQ with
    ``rerank=True`` (int8 refine, depth 64; its coarse quantizer and codec
@@ -198,7 +201,8 @@ with a ``paths`` breakdown: the flat scan's from the slice, the server, the
 union-scan variant 1's from the IVF slice, the IVF server, the chunked bf16
 build and the sharded IVF (1M and the slice), variant 2's from the IVF
 kernel phase, the PQ decode's from the PQ slice, the 10M searches and the
-sharded IVF-PQ,
+sharded IVF-PQ (with the rows of its launches on each path, and its times
+at a shard's union: per call and device time),
 K5's from the prototype search, K6's from the probe's run; each with its
 bound at the path's shape, its achieved TFLOP/s and share of that bound,
 and the one-call library time where one exists)
@@ -281,6 +285,52 @@ def cuda_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of ``fn`` in ms: the summed time of the kernels it
+    launches, over ``reps`` warm calls, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back with device events missing
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(on_card) >= reps:  # fn launches at least one kernel a call
+            return sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / reps
+    raise AssertionError("torch.profiler missed the device's kernels three times")
+
+
+def host_us(torch, fn, reps: int) -> float:
+    """Host-clock time of one call of ``fn`` in microseconds: ``reps``
+    back-to-back calls with no synchronize in between (fewer than the
+    launch queue holds, so the host does not wait for the device)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def rows_histogram(rows) -> dict:
+    """K4's rows per launch on one path: count, min, median, max, and the
+    launches in each power-of-two bucket (key: the bucket's upper bound)."""
+    hist = {}
+    for n in rows:
+        b = 1 << max(0, int(n) - 1).bit_length()
+        hist[b] = hist.get(b, 0) + 1
+    return {"launches": len(rows), "min": min(rows, default=None),
+            "median": statistics.median(rows) if rows else None,
+            "max": max(rows, default=None),
+            "buckets": {str(b): hist[b] for b in sorted(hist)}}
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1068,8 +1118,13 @@ def ivf_slice_phase(torch, workdir: Path):
 
 # ------------------------------------------------------------------ phase 8
 PQ_ROUTES = (("pq_decode kernel", "auto"), ("plain decode", "xla"))
-PQ_DECODE_COLUMNS = ["D", "M", "ksub", "dtype", "N", "groups", "max_abs_err", "ms",
+PQ_DECODE_COLUMNS = ["D", "M", "ksub", "dtype", "N", "staged", "groups", "max_abs_err", "ms",
                      "plain_ms"]
+# K4's rows per launch on its paths (the kernels line's rows_per_launch):
+# the PQ slice's 4,096 and 16,384, a shard's union of the sharded IVF-PQ
+# (16,384 and 32,768), union segments of the 10M chunked IVF-PQ (180,224
+# and 360,448), flat PQ's 524,288-row chunks
+PQ_PATH_ROWS = (4096, 16384, 32768, 180224, 360448, 1 << 19)
 
 
 def decode_check(torch, PD, cb, codes):
@@ -1108,22 +1163,34 @@ def decode_library(torch, PD, cb, codes) -> dict:
 
 def pq_decode_grid(torch, PD):
     """K4 over D = 384 with M 16 / 48 / 96 and D = 768 with M 96, ksub 16 and
-    256, bf16 and f32 codebooks, N from 0 to 1,048,576; at 1,048,576 rows of
-    M 48 ksub 256 bf16 also its one-call library equivalent."""
+    256, bf16 and f32 codebooks, N from 0 to 1,048,576 (``PQ_PATH_ROWS`` at
+    M 48, ksub 256; the rows on both sides of each end of the staged band;
+    whole tiles +-1 row near 4,096 and 16,384 rows); at 1,048,576 rows of M
+    48 ksub 256 bf16 also its one-call library equivalent."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
+    card = dict(zip(("sms", "smem_limit"), PD._card(torch.cuda.current_device())))
     cases, max_err, at_1m = [], 0.0, None
     for d, m in ((384, 16), (384, 48), (384, 96), (768, 96)):
         for ksub in (16, 256):
             for dtype in (torch.bfloat16, torch.float32):
                 cb = torch.randn((m, ksub, d // m), generator=g, device="cuda").to(dtype)
-                for n in (0, 1, 127, 4096, 1 << 20):
+                rows = {0, 1, 127, 4096, 1 << 20}
+                if (d, m, ksub) == (384, 48, 256):
+                    rows.update(PQ_PATH_ROWS)
+                band = PD.staged_rows(m, ksub, d // m, dtype, **card)
+                if band is not None:
+                    rows.update((band.start - 1, band.start, band.stop - 1, band.stop))
+                for n0 in (4096, 16384):  # one past and one short of whole tiles
+                    tile = PD.plan(m, ksub, d // m, dtype, n0, **card)["tile_rows"]
+                    rows.update((n0 // tile * tile - 1, n0 // tile * tile + 1))
+                for n in sorted(rows):
                     codes = torch.randint(0, ksub, (n, m), generator=g,
                                           device="cuda").to(torch.uint8)
                     err, ms, plain_ms = decode_check(torch, PD, cb, codes)
                     max_err = max(max_err, err)
+                    p = PD.plan(m, ksub, d // m, dtype, n, **card)
                     cases.append([d, m, ksub, str(dtype).removeprefix("torch."), n,
-                                  PD.plan(m, ksub, d // m, dtype)["groups"], err, ms,
-                                  plain_ms])
+                                  p["staged"], p["groups"], err, ms, plain_ms])
                     if (d, m, ksub, dtype, n) == (384, 48, 256, torch.bfloat16, 1 << 20):
                         at_1m = {"ms": ms, "plain_ms": plain_ms,
                                  **decode_library(torch, PD, cb, codes)}
@@ -1281,9 +1348,10 @@ def pq_slice_run(torch, workdir: Path, label: str, **index_kw):
     cfg = Config(base_dir=workdir, model_name="chip-smoke-random-init", **index_kw)
     picks, queries, batch_queries = slice_requests(docs)
 
-    PD.decode.launches = 0  # count the main path's launches only
+    PD.decode.launches, PD.decode.rows = 0, []  # count the main path's launches only
     run = drive_slice(torch, cfg, docs, queries, batch_queries)
-    launches = PD.decode.launches
+    launches, launch_rows = PD.decode.launches, PD.decode.rows[:PD.decode.launches]
+    PD.decode.rows = None
 
     index = run.manager.vector_store.index
     is_ivf = label == "ivf_pq"
@@ -1342,6 +1410,7 @@ def pq_slice_run(torch, workdir: Path, label: str, **index_kw):
     run.reloaded.cleanup()
     out = {**slice_summary(run, label, self_hits, top5_mismatch, batch_mismatch),
            "index_kind": cfg.index_kind, "pq_decode_launches": launches,
+           "pq_decode_rows": launch_rows,
            "main_path_kernel_times": shapes, "max_abs_err": max_err}
     if is_ivf:
         out.update(nlist=index.nlist, pq_m=index.pq_m, window=index._window,
@@ -1361,6 +1430,8 @@ def pq_slice_phase(torch):
             trace, out[label] = pq_slice_run(torch, Path(workdir), label, **kw)
         traces.append(trace)
     out["pq_decode_launches"] = sum(out[k]["pq_decode_launches"] for k in ("pq", "ivf_pq"))
+    out["pq_decode_rows_per_launch"] = rows_histogram(
+        out["pq"].pop("pq_decode_rows") + out["ivf_pq"].pop("pq_decode_rows"))
     return traces, out
 
 
@@ -2330,7 +2401,7 @@ def chunked_phase(torch, F, U, PD, coarse) -> dict:
     truth_launches = F.flat_search.launches
 
     single = queries[:64]
-    PD.decode.launches = 0  # the searches' launches
+    PD.decode.launches, PD.decode.rows = 0, []  # the searches' launches
     searches = []
     for nprobe in CHUNKED_NPROBES:
         v, ids = idx.search(queries, 10, nprobe=nprobe)
@@ -2348,7 +2419,8 @@ def chunked_phase(torch, F, U, PD, coarse) -> dict:
         if not (bool((ids >= 0).all()) and bool(torch.isfinite(v).all())):
             raise AssertionError(f"a 10M search at nprobe {nprobe} returned missing slots")
     torch.cuda.synchronize()
-    k4_launches = PD.decode.launches
+    k4_launches, k4_rows = PD.decode.launches, PD.decode.rows[:PD.decode.launches]
+    PD.decode.rows = None
     kernel_out = idx.search(queries, 10, nprobe=16)
     idx.backend = "xla"
     plain_out = idx.search(queries, 10, nprobe=16)
@@ -2362,7 +2434,8 @@ def chunked_phase(torch, F, U, PD, coarse) -> dict:
               "train_stats": idx.build_stats.get("train"), "window": idx._window,
               "spill_rows": idx._n_spill, "memory": memory, "searches": searches,
               "kernel_equals_plain_decode_q1024_nprobe16": True,
-              "path_launches": {"flat_scan": truth_launches, "pq_decode": k4_launches}}
+              "path_launches": {"flat_scan": truth_launches, "pq_decode": k4_launches},
+              "pq_decode_rows_per_launch": rows_histogram(k4_rows)}
     del idx, kernel_out, plain_out, truth
     torch.cuda.empty_cache()
     if working > bound:
@@ -2944,8 +3017,10 @@ def sharded_ivf_run(torch, F, U, PD, mesh, coarse, workdir: Path) -> dict:
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         U.union_scan.launches = PD.decode.launches = 0  # this index's searches
+        PD.decode.rows = []
         rows, (k2, k4) = recall_rows(torch, idx, queries, truth, SHARDED_NPROBES,
                                      (U.union_scan, PD.decode))
+        k4_rows, PD.decode.rows = PD.decode.rows[:k4], None
         n_search = len(SHARDED_NPROBES) * (64 + 1)
         res = {"build_s": build_s, "window": idx._window,
                "spill_rows": sum(idx._spill[3]) if idx._spill is not None else 0,
@@ -2958,6 +3033,7 @@ def sharded_ivf_run(torch, F, U, PD, mesh, coarse, workdir: Path) -> dict:
                 raise AssertionError(f"K4 launched {k4} times for {n_search} searches over "
                                      f"{idx.n_dev} shards")
             launches["pq_decode"] = k4
+            out["pq_decode_rows_per_launch"] = rows_histogram(k4_rows)
             kern = idx.search(queries, 10, nprobe=8)
             idx.backend = "xla"
             plain = idx.search(queries, 10, nprobe=8)
@@ -2975,7 +3051,10 @@ def sharded_ivf_run(torch, F, U, PD, mesh, coarse, workdir: Path) -> dict:
             codes = codes.reshape(-1, SHARDED_PQ_M)
             err, ms, plain_ms = decode_check(torch, PD, cb, codes)
             res["shard_decode"] = {"rows": codes.shape[0], "M": SHARDED_PQ_M,
-                                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                   "dtype": str(cb.dtype).removeprefix("torch."),
+                                   "max_abs_err": err, "ms": ms,
+                                   "device_ms": device_ms(torch, lambda: PD.decode(cb, codes)),
+                                   "plain_ms": plain_ms,
                                    **decode_library(torch, PD, cb, codes)}
         one = IVFFlatIndex(IVF_DIM, nlist=IVF_NLIST, train_iters=10, rerank=False, device=cuda,
                            **kw)
@@ -3158,10 +3237,14 @@ def sharded_slice_run(torch, U, mesh, workdir: Path) -> dict:
     tol = RTOL["float32"] * (max(float((e.astype("float64") ** 2).sum()) for e in embs)
                              + float((vecs.astype("float64") ** 2).sum(1).max()))
     at_default = [one_engine.search(t, top_k=5) for t in texts]
-    kernel_vs_one = sum(not hits_agree(a, b, e, vecs, row_of, tol)
-                        for a, b, e in zip(answers, at_default, embs))
-    if kernel_vs_one:
-        raise AssertionError(f"{kernel_vs_one} sharded answers at the default nprobe differ "
+    differing = [(t, a, b) for a, b, e, t in zip(answers, at_default, embs, texts)
+                 if not hits_agree(a, b, e, vecs, row_of, tol)]
+    if differing:  # the hits on both sides, for the record
+        emit({"phase": "sharded_slice_mismatch", "tolerance": tol, "answers": [
+            {"text": t[:80], "sharded": [(int(h["id"]), float(h["distance"])) for h in a],
+             "one_card": [(int(h["id"]), float(h["distance"])) for h in b]}
+            for t, a, b in differing]})
+        raise AssertionError(f"{len(differing)} sharded answers at the default nprobe differ "
                              "from the one-card engine's")
     for i in (loaded.index, one):
         i.backend, i.nprobe = "xla", i.nlist
@@ -3612,7 +3695,7 @@ def main() -> int:
     flat_q1 = sl["main_path_kernel_times"]["Q=1"]
     v1 = ivf_sl["main_path_kernel_times"]["Q=1"]
     v2 = ivf["kernel_cases"][1]
-    pq_q1 = pq_sl["pq"]["main_path_kernel_times"]["Q=1"]
+    shard_k4 = sharded["ivf"]["pq"]["shard_decode"]
     chain = kp["variants"]["chain"]
     flat_paths = {"slice": sl["flat_scan_launches"],
                   "serve": serve["flat"]["flat_scan_launches"]
@@ -3627,6 +3710,9 @@ def main() -> int:
     pq_paths = {"pq_slice": pq_sl["pq_decode_launches"],
                 "chunked": chunked["path_launches"]["pq_decode"],
                 "sharded": sharded["path_launches"]["pq_decode"]}
+    pq_rows = {"pq_slice": pq_sl["pq_decode_rows_per_launch"],
+               "chunked": chunked["pq_decode_rows_per_launch"],
+               "sharded": sharded["ivf"]["pq_decode_rows_per_launch"]}
     kernels = [{
         "name": "flat_scan", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": sum(flat_paths.values()),
@@ -3655,11 +3741,16 @@ def main() -> int:
     }, {
         "name": "pq_decode", "route": "cuda", "source": PQ_SOURCE,
         "replaces": PQ_REPLACES, "launches": sum(pq_paths.values()), "paths": pq_paths,
-        "max_abs_err": max(pq_err, sharded["ivf"]["pq"]["shard_decode"]["max_abs_err"],
+        "rows_per_launch": pq_rows,
+        "max_abs_err": max(pq_err, shard_k4["max_abs_err"],
                            *(pq_sl[k]["max_abs_err"] for k in ("pq", "ivf_pq"))),
-        "ms": pq_q1["ms"], "plain_ms": pq_q1["plain_ms"],
-        **achieved({"bytes": pq_q1["bytes"], "flops": 0, "dtype": pq_q1["dtype"]}, pq_q1["ms"]),
-        "library_ms": pq_q1["library_ms"],
+        # at a shard's union of the sharded IVF-PQ, the rows most launches get
+        "shape": f"{shard_k4['rows']} x M {shard_k4['M']} {shard_k4['dtype']}",
+        "ms": shard_k4["ms"], "device_ms": shard_k4["device_ms"],
+        "plain_ms": shard_k4["plain_ms"],
+        **achieved({"bytes": shard_k4["bytes"], "flops": 0, "dtype": shard_k4["dtype"]},
+                   shard_k4["ms"]),
+        "library_ms": shard_k4["library_ms"],
     }, {
         "name": "fused_proto", "route": "cuda", "source": FP_SOURCE,
         "replaces": FP_REPLACES, "launches": fp["path_launches"],

@@ -1,4 +1,5 @@
-// PTX wrappers shared by the scan kernels (flat_scan.cu, union_scan.cu):
+// PTX wrappers shared by the kernels (flat_scan.cu, union_scan.cu,
+// pq_decode.cu, fused_proto.cu, kernel_probe.cu):
 // cp.async copies from global to shared memory, which run while the SM
 // computes on tiles that have already arrived, and the sm_80+ tensor-core
 // pieces (ldmatrix, mma.sync bf16 -> f32).

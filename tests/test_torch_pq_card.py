@@ -72,17 +72,92 @@ def test_decode_kernel_is_bit_exact(cuda, dtype, m, ksub, dsub, n):
 
 @pytest.mark.cuda
 def test_decode_kernel_takes_unaligned_codes_and_wide_codebooks(cuda):
-    """Codes at an odd byte offset take the byte staging path; a codebook too
-    large for shared memory in one piece is split over subspace groups."""
+    """Codes at an odd byte offset are read byte by byte on both gather
+    paths; a codebook too large for shared memory in one piece is staged in
+    subspace groups (8,192 rows) or read through L2 (1,000 rows)."""
     g = torch.Generator(device=cuda).manual_seed(1)
     cb = torch.randn((96, 256, 8), generator=g, device=cuda)          # 768 KiB f32
-    codes = torch.randint(0, 256, (1001, 96), generator=g, device=cuda).to(torch.uint8)
-    odd = codes.view(-1)[1:1 + 1000 * 96].view(1000, 96)
-    assert odd.data_ptr() % 16
-    assert PD.plan(96, 256, 8, torch.float32)["groups"] > 1
-    assert torch.equal(PD.decode(cb, odd), PD.decode_reference(cb, odd))
+    codes = torch.randint(0, 256, (8193, 96), generator=g, device=cuda).to(torch.uint8)
+    for n, staged in ((1000, 0), (8192, 1)):
+        odd = codes.view(-1)[1:1 + n * 96].view(n, 96)
+        assert odd.data_ptr() % 16
+        p = PD.plan(96, 256, 8, torch.float32, n)
+        assert p["staged"] == staged and (p["groups"] > 1) == bool(staged)
+        assert torch.equal(PD.decode(cb, odd), PD.decode_reference(cb, odd))
     with pytest.raises(ValueError):
         PD.decode(cb[:, :0], codes)
+
+
+def _decode_case(cuda, m, ksub, dsub, dtype, n, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cb = torch.randn((m, ksub, dsub), generator=g, device=cuda).to(dtype)
+    codes = torch.randint(0, ksub, (n, m), generator=g, device=cuda).to(torch.uint8)
+    return cb, codes
+
+
+def _same_bits(a, b):
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(bits), b.view(bits))
+
+
+# the plan's switch points and tile edges, at the paths' codebooks (M 48,
+# D 384, bf16 and f32), f32 with 16- and 32-value subvectors, and D 768
+DECODE_SHAPES = [(48, 256, 8, torch.bfloat16), (48, 256, 8, torch.float32),
+                 (24, 256, 16, torch.float32), (96, 256, 8, torch.bfloat16),
+                 (96, 256, 8, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,ksub,dsub,dtype", DECODE_SHAPES)
+def test_decode_kernel_is_bit_exact_on_both_sides_of_the_crossovers(cuda, m, ksub, dsub, dtype):
+    sms, smem_limit = PD._card(cuda.index or 0)
+    band = PD.staged_rows(m, ksub, dsub, dtype, sms=sms, smem_limit=smem_limit)
+    assert band is not None
+    for n in (band.start - 1, band.start, band.stop - 1, band.stop):
+        assert PD.plan(m, ksub, dsub, dtype, n, sms=sms, smem_limit=smem_limit)["staged"] == (
+            n in band)
+        cb, codes = _decode_case(cuda, m, ksub, dsub, dtype, n, seed=n)
+        before = PD.decode.launches
+        out = PD.decode(cb, codes)
+        torch.cuda.synchronize()
+        assert PD.decode.launches == before + 1
+        assert _same_bits(out, PD.decode_reference(cb, codes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,ksub,dsub,dtype", DECODE_SHAPES)
+@pytest.mark.parametrize("path_n", [4096, 16384, 360448])
+def test_decode_kernel_is_bit_exact_at_a_tile_and_its_edges(cuda, m, ksub, dsub, dtype, path_n):
+    """N 1, 127, a path's row count, and whole tiles of the plan there, one
+    row short and one past (a ragged last tile)."""
+    tile = PD.plan(m, ksub, dsub, dtype, path_n)["tile_rows"]
+    whole = max(1, path_n // tile) * tile
+    for n in (1, 127, tile, whole - 1, whole, whole + 1, path_n):
+        cb, codes = _decode_case(cuda, m, ksub, dsub, dtype, n, seed=n)
+        before = PD.decode.launches
+        out = PD.decode(cb, codes)
+        torch.cuda.synchronize()
+        assert PD.decode.launches == before + 1
+        assert _same_bits(out, PD.decode_reference(cb, codes)), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [100, 16384, 200000])
+def test_decode_kernel_writes_an_unaligned_output_view(cuda, dtype, n):
+    """An output that starts off a 16-byte boundary cannot take the bulk
+    copy: the threads store it, in the same kernel, and touch nothing
+    around it."""
+    m, ksub, dsub = 48, 256, 8
+    cb, codes = _decode_case(cuda, m, ksub, dsub, dtype, n, seed=5)
+    buf = torch.full((n * m * dsub + 2,), 3.0, dtype=dtype, device=cuda)
+    view = buf[1:1 + n * m * dsub].view(n, m * dsub)
+    assert view.data_ptr() % 16
+    got = PD.decode(cb, codes, out=view)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == view.data_ptr()
+    assert _same_bits(view, PD.decode_reference(cb, codes))
+    assert buf[0] == 3.0 and buf[-1] == 3.0
 
 
 @pytest.mark.cuda
