@@ -1,0 +1,9 @@
+"""Mean host time of VectorStore.search a call on the IVF index."""
+
+from perfbench import readers as R
+
+UNIT = "ms"
+
+
+def read(ctx):
+    return R.mean_ms(ctx, 'vector_store.search')
