@@ -30,6 +30,7 @@ import torch
 
 from ..core.logging import get_logger
 from ..core.mesh import Mesh, make_mesh
+from ..utils.timers import span
 
 from .faiss_import import import_faiss_index
 from .flat import FlatIndex
@@ -81,8 +82,9 @@ class VectorStore:
             vectors = vectors.reshape(1, -1)
         if len(ids) != len(vectors):
             raise ValueError(f"{len(vectors)} vectors but {len(ids)} ids")
-        self.doc_ids.extend(int(i) for i in ids)
-        self.index.add(vectors)
+        with span("index.add", rows=len(ids)):
+            self.doc_ids.extend(int(i) for i in ids)
+            self.index.add(vectors)
         logger.debug("added %d vectors (ntotal=%d)", len(ids), self.ntotal)
 
     def import_faiss(self, path: str | Path,
@@ -117,30 +119,36 @@ class VectorStore:
         single = q.ndim == 1
         if single:
             q = q.reshape(1, -1)
-        kwargs = {}
-        if allowed_doc_ids is not None:
-            allowed = {int(i) for i in allowed_doc_ids}
-            mask = np.fromiter(
-                (d in allowed for d in self.doc_ids),
-                dtype=bool, count=len(self.doc_ids),
-            )
-            n = self.index.ntotal
-            if len(mask) < n:  # defensive: sequential-id fallback mapping
-                mask = np.pad(mask, (0, n - len(mask)))
-            kwargs["filter_mask"] = mask[:n]
-        values, indices = self.index.search(q, k, **kwargs)
-        values = values.cpu().numpy()
-        indices = indices.cpu().numpy()
-        all_ids: List[List[int]] = []
-        all_dists: List[np.ndarray] = []
-        for row_v, row_i in zip(values, indices):
-            ids, dists = [], []
-            for v, i in zip(row_v, row_i):
-                if i != -1 and i < len(self.doc_ids):
-                    ids.append(self.doc_ids[int(i)])
-                    dists.append(float(v))
-            all_ids.append(ids)
-            all_dists.append(np.asarray(dists, dtype=np.float32))
+        with span("vector_store.search", queries=len(q), k=k):
+            kwargs = {}
+            if allowed_doc_ids is not None:
+                allowed = {int(i) for i in allowed_doc_ids}
+                mask = np.fromiter(
+                    (d in allowed for d in self.doc_ids),
+                    dtype=bool, count=len(self.doc_ids),
+                )
+                n = self.index.ntotal
+                if len(mask) < n:  # defensive: sequential-id fallback mapping
+                    mask = np.pad(mask, (0, n - len(mask)))
+                kwargs["filter_mask"] = mask[:n]
+            with span("index.search"):
+                values, indices = self.index.search(q, k, **kwargs)
+            with span("vector_store.to_host"):  # the host waits for the card here
+                values = values.cpu().numpy()
+                indices = indices.cpu().numpy()
+            all_ids: List[List[int]] = []
+            all_dists: List[np.ndarray] = []
+            with span("vector_store.map_ids") as s:
+                for row_v, row_i in zip(values, indices):
+                    ids, dists = [], []
+                    for v, i in zip(row_v, row_i):
+                        if i != -1 and i < len(self.doc_ids):
+                            ids.append(self.doc_ids[int(i)])
+                            dists.append(float(v))
+                    all_ids.append(ids)
+                    all_dists.append(np.asarray(dists, dtype=np.float32))
+                if s:
+                    s.add(hits=sum(map(len, all_ids)))
         if single:
             return all_dists[0], all_ids[0]
         return all_dists, all_ids

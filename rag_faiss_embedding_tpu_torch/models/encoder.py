@@ -26,6 +26,7 @@ import torch
 from ..core.logging import get_logger
 
 from .. import default_device
+from ..utils.timers import span
 from .convert import (
     deterministic_params,
     import_params,
@@ -145,21 +146,31 @@ class EmbeddingPipeline:
         texts = list(texts)
         if not texts:
             return np.zeros((0, self.cfg.hidden_size), np.float32)
-        tok = self._require_tokenizer(texts)
-        ranges = range(0, len(texts), batch_size)
-        if show_progress:
-            try:
-                from tqdm import tqdm
+        with span("encoder.embed", rows=len(texts)):
+            tok = self._require_tokenizer(texts)
+            ranges = range(0, len(texts), batch_size)
+            if show_progress:
+                try:
+                    from tqdm import tqdm
 
-                ranges = tqdm(ranges, desc="Batches")
-            except ImportError:
-                pass
-        out: List[np.ndarray] = []
-        for start in ranges:
-            batch = texts[start : start + batch_size]
-            ids, mask = tok.encode_batch(batch, self.max_seq_length)
-            out.append(self._forward(ids, mask).float().cpu().numpy())
-        return np.concatenate(out, axis=0)
+                    ranges = tqdm(ranges, desc="Batches")
+                except ImportError:
+                    pass
+            out: List[np.ndarray] = []
+            for start in ranges:
+                batch = texts[start : start + batch_size]
+                with span("encoder.tokenize", rows=len(batch)) as s:
+                    ids, mask = tok.encode_batch(batch, self.max_seq_length)
+                    if s:
+                        s.add(real_tokens=int(mask.sum()), positions=mask.size)
+                with span("encoder.forward", rows=len(batch)):
+                    emb = self._forward(ids, mask)
+                with span("encoder.to_host", rows=len(batch)):  # waits for the card
+                    out.append(emb.float().cpu().numpy())
+                # CLS pooling gives a view of the batch's last hidden states:
+                # free them before the next batch's forward
+                del emb
+            return np.concatenate(out, axis=0)
 
     def embed_query(self, text: str) -> np.ndarray:
         return self.generate_embeddings([text], batch_size=1)[0]

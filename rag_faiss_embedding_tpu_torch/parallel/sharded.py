@@ -37,6 +37,7 @@ from ..index import codec
 from ..index.flat import _DTYPES, _dtype_name
 from ..ops import distance as dist_ops
 from ..ops import flat_scan
+from ..utils.timers import span
 
 logger = get_logger(__name__)
 
@@ -164,13 +165,16 @@ def sharded_exact_search(
         parts = []
         for j, p in enumerate(r):
             dev, start = mesh.devices[p], j * rows_per_dev
-            v, ix = flat_scan.flat_search(
-                qg.to(dev), shards[i][j], k_eff, metric=metric, db_sq=sq[i][j],
-                n_valid=max(nv - start, 0), dead=dd[i][j], chunk_size=chunk_size)
-            parts.append((v, torch.where(ix >= 0, ix + start, torch.full_like(ix, -1))))
-        v, ix = merge_shards(parts, k, metric, mesh.devices[r[0]])
-        out_v.append(v.to(home))
-        out_i.append(ix.to(home))
+            live = max(nv - start, 0)
+            with span("sharded.shard_scan", shard=j, rows=min(live, rows_per_dev)):
+                v, ix = flat_scan.flat_search(
+                    qg.to(dev), shards[i][j], k_eff, metric=metric, db_sq=sq[i][j],
+                    n_valid=live, dead=dd[i][j], chunk_size=chunk_size)
+                parts.append((v, torch.where(ix >= 0, ix + start, torch.full_like(ix, -1))))
+        with span("sharded.merge", shards=len(parts)):
+            v, ix = merge_shards(parts, k, metric, mesh.devices[r[0]])
+            out_v.append(v.to(home))
+            out_i.append(ix.to(home))
     return pad_to_k(torch.cat(out_v), torch.cat(out_i), k, metric)
 
 

@@ -35,6 +35,7 @@ from ..store.database import Database
 from ..index.vector_store import VectorStore
 from ..models.encoder import EmbeddingPipeline
 from ..models.generator import AnswerGenerator
+from ..utils.timers import span
 
 logger = get_logger(__name__)
 
@@ -71,13 +72,14 @@ class QueryEngine:
         doc-id allowlist and applied INSIDE the scan (filtered search).
         An invalid predicate raises ``ValueError`` (caller input error);
         runtime search failures degrade to an empty result."""
-        allowed = self._resolve_where(where)  # ValueError propagates
-        try:
-            emb = self.embedder.embed_query(query)
-            return self.search_by_vector(emb, top_k, allowed_doc_ids=allowed)
-        except Exception:
-            logger.exception("search error")
-            return []
+        with span("engine.search"):
+            allowed = self._resolve_where(where)  # ValueError propagates
+            try:
+                emb = self.embedder.embed_query(query)
+                return self.search_by_vector(emb, top_k, allowed_doc_ids=allowed)
+            except Exception:
+                logger.exception("search error")
+                return []
 
     def search_by_vector(self, query_vector, top_k: int = 5,
                          allowed_doc_ids=None) -> List[Dict]:
@@ -86,7 +88,8 @@ class QueryEngine:
         distances, doc_ids = self.vector_store.search(
             query_vector, top_k, allowed_doc_ids=allowed_doc_ids
         )
-        docs = self.db.get_documents_by_ids(doc_ids)
+        with span("store.fetch"):
+            docs = self.db.get_documents_by_ids(doc_ids)
         results: List[Dict] = []
         for doc, doc_id, dist in zip(docs, doc_ids, distances):
             if doc is None:
@@ -110,28 +113,30 @@ class QueryEngine:
         Unlike the JAX engine, the query rows are not padded to a
         power-of-two bucket: that caps JIT compiles there, and here the
         encoder and the scan kernel take any row count without one."""
-        allowed = self._resolve_where(where)
-        if allowed is not None and not len(allowed):
-            return [[] for _ in queries]
-        embs = self.embedder.generate_embeddings(queries)
-        dists, ids = self.vector_store.search(
-            embs, top_k, allowed_doc_ids=allowed
-        )
-        out = []
-        for row_d, row_ids in zip(dists, ids):
-            docs = self.db.get_documents_by_ids(row_ids)
-            results = []
-            for doc, dist in zip(docs, row_d):
-                if doc is None:
-                    continue
-                dist = float(dist)
-                doc["distance"] = dist
-                doc["score"] = (
-                    dist if self.vector_store.metric == "IP" else 1.0 / (1.0 + dist)
-                )
-                results.append(doc)
-            out.append(results)
-        return out
+        with span("engine.search_batch", rows=len(queries)):
+            allowed = self._resolve_where(where)
+            if allowed is not None and not len(allowed):
+                return [[] for _ in queries]
+            embs = self.embedder.generate_embeddings(queries)
+            dists, ids = self.vector_store.search(
+                embs, top_k, allowed_doc_ids=allowed
+            )
+            out = []
+            with span("store.fetch"):
+                for row_d, row_ids in zip(dists, ids):
+                    docs = self.db.get_documents_by_ids(row_ids)
+                    results = []
+                    for doc, dist in zip(docs, row_d):
+                        if doc is None:
+                            continue
+                        dist = float(dist)
+                        doc["distance"] = dist
+                        doc["score"] = (
+                            dist if self.vector_store.metric == "IP" else 1.0 / (1.0 + dist)
+                        )
+                        results.append(doc)
+                    out.append(results)
+            return out
 
     # ------------------------------------------------------------ generate
     def truncate_content(self, content: str, max_tokens: int) -> str:

@@ -34,6 +34,7 @@ from ..index.ivf import IVFFlatIndex
 from ..index.pq import PQIndex
 from ..index.vector_store import VectorStore
 from ..models.encoder import EmbeddingPipeline
+from ..utils.timers import span
 
 logger = get_logger(__name__)
 
@@ -122,14 +123,16 @@ class RAGManager:
         tombstoned."""
         if not documents:
             return 0
-        prior_ids = [
-            pid for doc in documents
-            if (pid := self.db.get_document_id_by_url(doc["url"])) is not None
-        ]
-        if prior_ids:
-            self.vector_store.remove_doc_ids(prior_ids)
-        ids = self.db.insert_documents(documents)
-        self.vector_store.add_vectors(self._embed(documents), ids)
+        with span("manager.add_documents", rows=len(documents)):
+            with span("store.lookup_urls", urls=len(documents)):
+                prior_ids = [
+                    pid for doc in documents
+                    if (pid := self.db.get_document_id_by_url(doc["url"])) is not None
+                ]
+            if prior_ids:
+                self.vector_store.remove_doc_ids(prior_ids)
+            ids = self.db.insert_documents(documents)
+            self.vector_store.add_vectors(self._embed(documents), ids)
         return len(ids)
 
     def load_indices(self) -> None:

@@ -32,21 +32,29 @@ adds, deletes, saves and the watchdog's probe) runs on ONE worker thread:
 the port's indexes are written in place (``FlatIndex.add`` writes its
 buffer at the watermark and reallocates it on growth), so a search must
 not run beside an add.
+
+Spans (``utils.timers``; they record while a torch profiler records on the
+event loop's thread): each ``POST /search`` is a ``serve.request`` root
+with its ``serve.queue_wait`` (queued to taken, naming the batch), and
+each batch a ``serve.batch`` root (its rows and request ids) over the
+engine's spans, which ``run`` carries to the worker thread.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextvars
 import http
 import json
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Set, Tuple
 from urllib.parse import urlsplit
 
 from ..core.config import Config
 from ..core.logging import get_logger
-from ..utils.timers import StageTimer
+from ..utils.timers import StageTimer, current, span
 
 logger = get_logger(__name__)
 
@@ -54,12 +62,17 @@ MAX_BODY_BYTES = 1024 ** 2  # aiohttp's default client_max_size
 
 
 class _PendingQuery:
-    __slots__ = ("text", "top_k", "future")
+    """A queued query; ``span`` is its request's span where spans record,
+    and ``t0`` the monotonic time it was queued (then only)."""
+
+    __slots__ = ("text", "top_k", "future", "span", "t0")
 
     def __init__(self, text: str, top_k: int, future: asyncio.Future):
         self.text = text
         self.top_k = top_k
         self.future = future
+        self.span = current()
+        self.t0 = time.monotonic_ns() if self.span is not None else 0
 
 
 class SearchService:
@@ -82,10 +95,13 @@ class SearchService:
         self._worker: Optional[ThreadPoolExecutor] = None
 
     async def run(self, fn: Callable, *args):
-        """``fn(*args)`` on the service's one worker thread."""
+        """``fn(*args)`` on the service's one worker thread, in a copy of
+        the caller's context (so the call's spans have the caller's span
+        for parent)."""
         if self._worker is None:
             self._worker = ThreadPoolExecutor(1, thread_name_prefix="search-worker")
-        return await asyncio.get_running_loop().run_in_executor(self._worker, fn, *args)
+        return await asyncio.get_running_loop().run_in_executor(
+            self._worker, contextvars.copy_context().run, fn, *args)
 
     async def start(self) -> None:
         if self._task is None:
@@ -139,8 +155,14 @@ class SearchService:
             try:
                 texts = [p.text for p in batch]
                 k = max(p.top_k for p in batch)
-                with self.timer.stage(f"batch_search(n={len(batch)})"):
-                    results = await self.run(self.engine.search_batch, texts, k)
+                with span("serve.batch", rows=len(batch)) as s:
+                    if s:
+                        traced = [p for p in batch if p.span is not None]
+                        s.add(requests=[p.span.request for p in traced])
+                        for p in traced:
+                            p.span.record("serve.queue_wait", p.t0, s.t0, batch=s.id)
+                    with self.timer.stage(f"batch_search(n={len(batch)})"):
+                        results = await self.run(self.engine.search_batch, texts, k)
                 for p, docs in zip(batch, results):
                     if not p.future.done():
                         p.future.set_result(docs[: p.top_k])
@@ -341,28 +363,29 @@ class SearchApp:
         }
 
     async def search(self, body: bytes):
-        req = _json_body(body)
-        if req is None:
-            return 400, {"detail": "invalid JSON body"}
-        text = req.get("text")
-        if not isinstance(text, str) or not text.strip():
-            return 422, {"detail": "'text' must be a non-empty string"}
-        top_k = req.get("top_k", self.config.top_k)
-        if not isinstance(top_k, int) or top_k <= 0:
-            return 422, {"detail": "'top_k' must be a positive integer"}
-        generate = bool(req.get("generate", True))
-        where = req.get("filter")
-        if where is not None and not isinstance(where, dict):
-            return 422, {"detail": "'filter' must be an object of metadata predicates"}
-        try:
-            docs = await self.service.search(text, top_k, where=where)
-        except ValueError as e:  # unknown filter key
-            return 422, {"detail": str(e)}
-        response = {"similar_documents": docs}
-        if generate:
-            response["generated_response"] = await self.service.run(
-                self.engine.generate_response, text, docs)
-        return 200, response
+        with span("serve.request"):
+            req = _json_body(body)
+            if req is None:
+                return 400, {"detail": "invalid JSON body"}
+            text = req.get("text")
+            if not isinstance(text, str) or not text.strip():
+                return 422, {"detail": "'text' must be a non-empty string"}
+            top_k = req.get("top_k", self.config.top_k)
+            if not isinstance(top_k, int) or top_k <= 0:
+                return 422, {"detail": "'top_k' must be a positive integer"}
+            generate = bool(req.get("generate", True))
+            where = req.get("filter")
+            if where is not None and not isinstance(where, dict):
+                return 422, {"detail": "'filter' must be an object of metadata predicates"}
+            try:
+                docs = await self.service.search(text, top_k, where=where)
+            except ValueError as e:  # unknown filter key
+                return 422, {"detail": str(e)}
+            response = {"similar_documents": docs}
+            if generate:
+                response["generated_response"] = await self.service.run(
+                    self.engine.generate_response, text, docs)
+            return 200, response
 
     async def stats(self, body: bytes):
         return 200, self.service.timer.summary()

@@ -26,6 +26,7 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
 from ..core.logging import get_logger
+from ..utils.timers import span
 
 logger = get_logger(__name__)
 
@@ -86,30 +87,33 @@ class Database:
         ``rag_datastore_manager.py:45-65``) or omit it for autoincrement
         (modular path, ``database.py:48-59``).
         """
-        now = _utcnow()
-        ids: List[int] = []
-        cur = self.conn.cursor()
-        for doc in documents:
-            cur.execute(
-                """
-                INSERT OR REPLACE INTO documents
-                    (id, url, title, content, created_at, updated_at)
-                VALUES (?, ?, ?, ?, ?, ?)
-                """,
-                (
-                    doc.get("id"),
-                    doc["url"],
-                    doc.get("title", ""),
-                    doc.get("content", ""),
-                    doc.get("created_at", now),
-                    doc.get("updated_at", now),
-                ),
-            )
-            if doc.get("id") is not None:
-                ids.append(int(doc["id"]))
-            else:
-                ids.append(int(cur.lastrowid))
-        self.conn.commit()
+        with span("store.insert") as s:
+            now = _utcnow()
+            ids: List[int] = []
+            cur = self.conn.cursor()
+            for doc in documents:
+                cur.execute(
+                    """
+                    INSERT OR REPLACE INTO documents
+                        (id, url, title, content, created_at, updated_at)
+                    VALUES (?, ?, ?, ?, ?, ?)
+                    """,
+                    (
+                        doc.get("id"),
+                        doc["url"],
+                        doc.get("title", ""),
+                        doc.get("content", ""),
+                        doc.get("created_at", now),
+                        doc.get("updated_at", now),
+                    ),
+                )
+                if doc.get("id") is not None:
+                    ids.append(int(doc["id"]))
+                else:
+                    ids.append(int(cur.lastrowid))
+            s.add(rows=len(ids))
+            with span("store.commit"):
+                self.conn.commit()
         logger.debug("inserted %d documents", len(ids))
         return ids
 

@@ -6,10 +6,13 @@ Counterpart of ``rag_faiss_embedding_tpu/utils/profiling.py``, which wraps
 CUDA device, exported as a Chrome trace (open it in Perfetto or
 ``chrome://tracing``). The reference has no tracing or profiling at all
 (SURVEY.md §5); this pairs the host-side ``StageTimer`` with device traces.
+While the trace records, so do the port's spans (``utils.timers.span``):
+they are written beside it as ``spans-<time>.json``.
 """
 
 from __future__ import annotations
 
+import json
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -18,6 +21,7 @@ from typing import Iterator
 import torch
 
 from ..core.logging import get_logger
+from . import timers
 
 logger = get_logger(__name__)
 
@@ -25,7 +29,9 @@ logger = get_logger(__name__)
 @contextmanager
 def device_trace(log_dir: str | Path = "logs/torch_trace") -> Iterator[None]:
     """Trace the enclosed block (host ops, and CUDA kernels where a card is
-    visible) into ``<log_dir>/trace-<time>.json``."""
+    visible) into ``<log_dir>/trace-<time>.json``, and the port's spans
+    that started in it into ``<log_dir>/spans-<time>.json`` (a list of
+    ``utils.timers.spans`` records, times on ``time.monotonic_ns``)."""
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -33,12 +39,16 @@ def device_trace(log_dir: str | Path = "logs/torch_trace") -> Iterator[None]:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
     prof.start()
+    t0 = time.monotonic_ns()
     try:
         yield
     finally:
         prof.stop()
-        out = log_dir / f"trace-{time.time_ns()}.json"
+        t1 = time.monotonic_ns()
+        stamp = time.time_ns()
+        out = log_dir / f"trace-{stamp}.json"
         prof.export_chrome_trace(str(out))
+        (log_dir / f"spans-{stamp}.json").write_text(json.dumps(timers.spans(t0, t1)))
         logger.info("device trace written to %s", out)
 
 
