@@ -12,13 +12,16 @@ Same resolution order as the JAX pipeline:
   deterministic random init.
 Sequences are padded to power-of-two buckets, as in JAX. Unlike JAX, a
 short last batch is not padded to ``batch_size`` rows: that pad caps JIT
-compiles there, and eager PyTorch compiles nothing per shape.
+compiles there, and eager PyTorch compiles nothing per shape. Also unlike
+JAX, a call longer than one batch is cut into batches in length order,
+longest text first, so each batch pads to the bucket of its own lengths
+and not of the call's longest; the embeddings come back in input order.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Iterable, List, Optional, Sequence
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,7 +38,7 @@ from .convert import (
     load_pretrained,
 )
 from .minilm import MiniLMConfig, MiniLMEncoder
-from .tokenizer import WordPieceTokenizer
+from .tokenizer import WordPieceTokenizer, pad_length
 
 logger = get_logger(__name__)
 
@@ -142,12 +145,23 @@ class EmbeddingPipeline:
         show_progress: bool = False,
     ) -> np.ndarray:
         """Batched embed; returns (len(texts), hidden) float32 numpy array
-        (the reference ``generate_embeddings``, ``vectorization.py:19``)."""
+        in input order (the reference ``generate_embeddings``,
+        ``vectorization.py:19``).
+
+        A call of more than ``batch_size`` texts is cut into batches
+        longest text first (by characters, a stable sort, as
+        sentence-transformers' ``encode`` orders them), so each batch pads
+        to the bucket of texts of about one length."""
         texts = list(texts)
         if not texts:
             return np.zeros((0, self.cfg.hidden_size), np.float32)
-        with span("encoder.embed", rows=len(texts)):
+        with span("encoder.embed", rows=len(texts)) as s:
             tok = self._require_tokenizer(texts)
+            if len(texts) > batch_size:
+                order = np.argsort([-len(t) for t in texts], kind="stable")
+            else:
+                order = np.arange(len(texts))
+            real = np.empty(len(texts), np.int64) if s else None  # tokens a row
             ranges = range(0, len(texts), batch_size)
             if show_progress:
                 try:
@@ -156,21 +170,31 @@ class EmbeddingPipeline:
                     ranges = tqdm(ranges, desc="Batches")
                 except ImportError:
                     pass
-            out: List[np.ndarray] = []
+            out = np.empty((len(texts), self.cfg.hidden_size), np.float32)
             for start in ranges:
-                batch = texts[start : start + batch_size]
-                with span("encoder.tokenize", rows=len(batch)) as s:
+                rows = order[start : start + batch_size]
+                batch = [texts[i] for i in rows]
+                with span("encoder.tokenize", rows=len(batch)) as t:
                     ids, mask = tok.encode_batch(batch, self.max_seq_length)
-                    if s:
-                        s.add(real_tokens=int(mask.sum()), positions=mask.size)
+                    if t:
+                        t.add(real_tokens=int(mask.sum()), positions=mask.size)
+                if s:
+                    real[rows] = mask.sum(1)
                 with span("encoder.forward", rows=len(batch)):
                     emb = self._forward(ids, mask)
                 with span("encoder.to_host", rows=len(batch)):  # waits for the card
-                    out.append(emb.float().cpu().numpy())
+                    out[rows] = emb.float().cpu().numpy()
                 # CLS pooling gives a view of the batch's last hidden states:
                 # free them before the next batch's forward
                 del emb
-            return np.concatenate(out, axis=0)
+            if s:  # padded positions of these batches, and of arrival-order ones
+                def padded(lengths):
+                    return sum(len(c) * pad_length(int(c.max()), self.max_seq_length)
+                               for c in np.split(lengths, range(batch_size, len(lengths),
+                                                                batch_size)))
+
+                s.add(positions=padded(real[order]), arrival_positions=padded(real))
+            return out
 
     def embed_query(self, text: str) -> np.ndarray:
         return self.generate_embeddings([text], batch_size=1)[0]

@@ -47,6 +47,16 @@ SPECIALS = [PAD, UNK, CLS, SEP, MASK]
 _BUCKETS = (16, 32, 64, 128, 256, 512)
 
 
+def pad_length(longest: int, max_length: int = 512, bucketed: bool = True) -> int:
+    """The length ``encode_batch`` pads a batch to whose longest row has
+    ``longest`` tokens: the next power-of-two bucket <= max_length, or the
+    longest row itself when not ``bucketed``."""
+    if not bucketed:
+        return longest
+    pad_to = next((b for b in _BUCKETS if b >= longest and b <= max_length), max_length)
+    return min(max(pad_to, longest), max_length)
+
+
 def _is_punct(ch: str) -> bool:
     cp = ord(ch)
     if (33 <= cp <= 47) or (58 <= cp <= 64) or (91 <= cp <= 96) or (123 <= cp <= 126):
@@ -186,13 +196,7 @@ class WordPieceTokenizer:
         so jit sees a small fixed set of shapes.
         """
         encoded = [self.encode(t, max_length) for t in texts]
-        longest = max((len(e) for e in encoded), default=1)
-        if bucketed:
-            pad_to = next((b for b in _BUCKETS if b >= longest and b <= max_length),
-                          max_length)
-            pad_to = min(max(pad_to, longest), max_length)
-        else:
-            pad_to = longest
+        pad_to = pad_length(max((len(e) for e in encoded), default=1), max_length, bucketed)
         ids = np.full((len(encoded), pad_to), self.pad_id, np.int32)
         mask = np.zeros((len(encoded), pad_to), np.int32)
         for r, e in enumerate(encoded):

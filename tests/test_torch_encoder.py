@@ -223,3 +223,115 @@ def test_hf_bert_checkpoint_converts(rng):
         ref = hf(input_ids=ids_t, attention_mask=mask_t).last_hidden_state[:, 0]
         out = ours(ids_t, mask_t)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL)
+
+
+# ---- length-ordered batches: a call is cut into batches longest text first
+# (stable by character count) and comes back in input order.
+
+WORDS = ["vector", "search", "tensor", "cores", "shard", "merge", "query", "index",
+         "sqlite", "commit", "batch", "token", "encoder", "latency", "card", "host"]
+LONG = MiniLMConfig(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+                    intermediate_size=64, max_position_embeddings=512)
+
+
+@pytest.fixture(scope="module")
+def long_pipe():
+    vocab = {t: i for i, t in enumerate(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + WORDS)}
+    return TPipe(model_name="offline-test", cfg=LONG,
+                 params=tconvert.deterministic_params(LONG, seed=3),
+                 tokenizer=TTok(vocab), max_seq_length=512, device="cpu")
+
+
+def _mixed(seed, n, lo=1, hi=300):
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(WORDS, size=int(rng.integers(lo, hi + 1)))) for _ in range(n)]
+
+
+def _spy(monkeypatch, tok):
+    """Every batch ``encode_batch`` is given, with the positions it padded to."""
+    seen, encode = [], tok.encode_batch
+
+    def spy(texts, *a, **kw):
+        ids, mask = encode(texts, *a, **kw)
+        seen.append((list(texts), mask.size))
+        return ids, mask
+
+    monkeypatch.setattr(tok, "encode_batch", spy)
+    return seen, encode
+
+
+def _chunks(texts, size):
+    return [texts[i:i + size] for i in range(0, len(texts), size)]
+
+
+def test_length_ordered_batches_return_input_order(long_pipe):
+    """Row for row in input order, what each text gives embedded alone;
+    repeated texts come back identical."""
+    texts = _mixed(0, 90)
+    texts += texts[:10]
+    texts = [texts[i] for i in np.random.default_rng(1).permutation(len(texts))]
+    got = long_pipe.generate_embeddings(texts, batch_size=8)
+    alone = np.stack([long_pipe.generate_embeddings([t], batch_size=1)[0] for t in texts])
+    assert got.shape == (100, LONG.hidden_size) and got.dtype == np.float32
+    np.testing.assert_allclose(got, alone, rtol=1e-5, atol=2e-5)
+    first = {}
+    for i, t in enumerate(texts):
+        np.testing.assert_array_equal(got[i], got[first.setdefault(t, i)])
+    assert len(first) == 90
+
+
+def test_length_ordered_batches_pad_less(long_pipe, monkeypatch):
+    """A mixed-length call pads fewer positions than batches cut in arrival
+    order; ``encoder.embed`` counts both under a recording span root."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_faiss_embedding_tpu_torch.utils import timers
+
+    texts = _mixed(2, 64)
+    seen, encode = _spy(monkeypatch, long_pipe.tokenizer)
+    timers.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            long_pipe.generate_embeddings(texts, batch_size=8)
+        [embed] = [r for r in timers.spans() if r["name"] == "encoder.embed"]
+    finally:
+        timers.clear()
+    arrival = sum(encode(c, 512)[1].size for c in _chunks(texts, 8))
+    assert [len(b) for b, _ in seen] == [8] * 8
+    assert sorted(t for b, _ in seen for t in b) == sorted(texts)
+    lengths = [len(t) for b, _ in seen for t in b]
+    assert lengths == sorted(lengths, reverse=True)
+    positions = sum(n for _, n in seen)
+    assert embed["counts"] == {"rows": 64, "positions": positions, "arrival_positions": arrival}
+    assert positions < arrival
+
+
+@pytest.mark.parametrize("case", ["equal_lengths", "one_batch"])
+def test_length_ordered_batches_keep_arrival_order(long_pipe, monkeypatch, case):
+    """Texts of one length, and a call that fits in one batch, see the
+    batches arrival order gives, in the same order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_faiss_embedding_tpu_torch.utils import timers
+
+    if case == "equal_lengths":  # 5-letter words only: one character count
+        five = [w for w in WORDS if len(w) == 5]
+        rng = np.random.default_rng(4)
+        texts, size = [" ".join(rng.choice(five, size=40)) for _ in range(20)], 8
+        assert len({len(t) for t in texts}) == 1
+    else:
+        texts, size = _mixed(5, 8), 8
+    seen, encode = _spy(monkeypatch, long_pipe.tokenizer)
+    timers.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = long_pipe.generate_embeddings(texts, batch_size=size)
+        [embed] = [r for r in timers.spans() if r["name"] == "encoder.embed"]
+    finally:
+        timers.clear()
+    assert [b for b, _ in seen] == _chunks(texts, size)
+    counts = embed["counts"]
+    assert counts["positions"] == counts["arrival_positions"] == sum(n for _, n in seen)
+    np.testing.assert_array_equal(
+        got, np.concatenate([long_pipe.generate_embeddings(c, batch_size=size)
+                             for c in _chunks(texts, size)]))

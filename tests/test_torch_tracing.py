@@ -161,10 +161,11 @@ def test_sharded_search_gives_one_root_with_every_stage():
 def test_manager_add_gives_the_ingest_spans(tmp_path):
     cfg = Config(base_dir=tmp_path, vector_dimension=SMALL.hidden_size, batch_size=4)
     manager = RAGManager(config=cfg, embedder=_embedder(), device="cpu")
+    docs = _docs(10, first=3)
     try:
         manager.add_documents(_docs(3))
         with _cpu_profile():
-            assert manager.add_documents(_docs(10, first=3)) == 10
+            assert manager.add_documents(docs) == 10
     finally:
         manager.cleanup()
     records = timers.spans()
@@ -175,7 +176,13 @@ def test_manager_add_gives_the_ingest_spans(tmp_path):
     [insert] = by["store.insert"]
     assert insert["counts"] == {"rows": 10}
     assert [c["parent"] for c in by["store.commit"]] == [insert["id"]]
-    assert by["encoder.embed"][0]["counts"] == {"rows": 10}
+    contents = [d["content"] for d in docs]
+    arrival = sum(manager.embedder.tokenizer.encode_batch(contents[i:i + 4], 64)[1].size
+                  for i in range(0, 10, 4))
+    assert by["encoder.embed"][0]["counts"] == {
+        "rows": 10, "arrival_positions": arrival,
+        "positions": sum(r["counts"]["positions"] for r in by["encoder.tokenize"])}
+    assert by["encoder.embed"][0]["counts"]["positions"] <= arrival
     assert by["index.add"][0]["counts"] == {"rows": 10}
     for name in ("encoder.tokenize", "encoder.forward", "encoder.to_host"):
         assert [r["counts"]["rows"] for r in by[name]] == [4, 4, 2], name
