@@ -77,8 +77,19 @@ class Config:
     top_k: int = 5
 
     # Generation (reference query.py:15-17,71,95)
+    # "auto" (FLAN-T5 where a local checkpoint exists, else "extractive"),
+    # "hf", "extractive", or "native": a DeepSeek-V2 decoder on the card
+    # (models/deepseek_v2.py), ``generator_model`` then a directory with its
+    # config.json and vocab.txt.
+    generator_backend: str = "auto"
     generator_model: str = "google/flan-t5-base"
+    # FLAN-T5: the pipeline's max_length, in T5 tokens. native: the answer's
+    # length in the generator's WordPiece tokens, exactly (greedy, no stop).
     generation_max_length: int = 200
+    # Encoder WordPiece tokens of retrieved context in a prompt, split evenly
+    # over the documents (each truncated to its share). FLAN-T5 reads 512
+    # tokens at most; for the native backend it sets the prompt's length
+    # (top_k 16 and 16,384: 16 chunks of 1,024, a ~16.5k-token prompt).
     context_token_budget: int = 400
 
     # Data files (reference config.py:36-37)
@@ -161,6 +172,11 @@ class Config:
             raise ValueError("top_k must be positive")
         if self.pooling not in ("cls", "mean"):
             raise ValueError("pooling must be 'cls' or 'mean'")
+        if self.generator_backend not in ("auto", "hf", "extractive", "native"):
+            raise ValueError(
+                "generator_backend must be 'auto', 'hf', 'extractive' or 'native'")
+        if self.generation_max_length <= 0 or self.context_token_budget <= 0:
+            raise ValueError("generation_max_length and context_token_budget must be positive")
         return True
 
     def setup_directories(self) -> None:

@@ -205,19 +205,20 @@ class WordPieceTokenizer:
         return ids, mask
 
     def decode(self, ids: Iterable[int]) -> str:
-        toks = []
+        """Tokens joined by spaces, each ``##`` piece glued to the text
+        before it; [PAD], [CLS] and [SEP] dropped. One join, not a string
+        grown a token at a time: a RAG prompt decodes ~16k tokens a call."""
         special = {self.pad_id, self.cls_id, self.sep_id}
-        for i in ids:
-            if int(i) in special:
-                continue
-            toks.append(self.inv_vocab.get(int(i), UNK))
-        out = ""
-        for t in toks:
-            if t.startswith("##"):
-                out += t[2:]
-            else:
-                out += (" " if out else "") + t
-        return out
+        inv = self.inv_vocab
+        toks = [inv.get(i, UNK) for i in map(int, ids) if i not in special]
+        first = 0  # tokens that add nothing get no space after them
+        while first < len(toks) and toks[first] in ("", "##"):
+            first += 1
+        toks = toks[first:]
+        if toks and toks[0].startswith("##"):
+            toks[0] = toks[0][2:]
+        # no token holds a space, so " ##" only ever marks a piece's start
+        return " ".join(toks).replace(" ##", "")
 
     @property
     def vocab_size(self) -> int:

@@ -15,7 +15,9 @@ and ``RAGDatabaseManager.search_similar_documents``
   ``score = 1/(1+distance)`` (``query.py:42``) and raw ``distance``.
 - ``generate_response(query, docs)``: pack a context under a 400-token budget
   split evenly across documents (``query.py:71-79``), prompt-template it and
-  run the generator (``query.py:88-95``).
+  run the generator (``query.py:88-95``); the server hands it the one its
+  ``Config`` names (``AnswerGenerator.from_config``: FLAN-T5, extractive,
+  or the native DeepSeek-V2 on the card) and ``context_token_budget``.
 
 Deliberate fixes of reference quirks (SURVEY.md §7): no ``idx+1`` re-mapping
 of already-mapped ids (``query.py:40`` double-maps and returns the wrong

@@ -436,6 +436,14 @@ def make_app(engine, config: Optional[Config] = None, manager=None) -> SearchApp
     return SearchApp(engine, config or Config.from_env(), manager=manager)
 
 
+def build_generator(cfg: Config, embedder):
+    """The answer generator ``cfg`` names (``generator_backend``), the
+    native one on the embedder's device."""
+    from ..models.generator import AnswerGenerator
+
+    return AnswerGenerator.from_config(cfg, device=embedder.device)
+
+
 async def _serve(app: SearchApp, host: str, port: int) -> None:
     await app.start(host, port)
     print(f"serving on http://{host}:{app.port}", flush=True)
@@ -455,7 +463,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = parser.parse_args(argv)
 
     cfg = Config.from_env(base_dir=args.base_dir)
-    from ..models.generator import AnswerGenerator
     from ..rag.engine import QueryEngine
     from ..rag.manager import RAGManager
 
@@ -465,7 +472,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         manager.db,
         manager.vector_store,
         manager.embedder,
-        generator=AnswerGenerator(model_name=cfg.generator_model),
+        generator=build_generator(cfg, manager.embedder),
         context_token_budget=cfg.context_token_budget,
     )
     app = make_app(engine, cfg, manager=manager)

@@ -129,6 +129,22 @@ def test_tokenizer_copy_matches_jax(tmp_path):
     assert ttok.decode(ti[0]) == jtok.decode(ji[0])
 
 
+def test_tokenizer_decode_matches_jax_on_any_ids():
+    """The port's one-join decode against the JAX copy's token-by-token
+    loop, on id runs that start with, repeat and mix ``##`` pieces, bare
+    ``##``, an empty token, specials and ids past the vocabulary."""
+    toks = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "", "##", "###", "####x",
+            "a", "bc", "##d", "##ef", "g", "##h"]
+    vocab = {t: i for i, t in enumerate(toks)}
+    jtok, ttok = JTok(vocab), TTok(vocab)
+    rng = np.random.default_rng(7)
+    for n in range(48):
+        for _ in range(8):
+            ids = rng.integers(0, len(toks) + 3, size=n)
+            assert ttok.decode(ids) == jtok.decode(ids)
+            assert ttok.decode(ids.tolist()) == jtok.decode(ids.tolist())
+
+
 @pytest.mark.parametrize("pooling,normalize", [("cls", False), ("mean", True)])
 def test_pipeline_matches_jax_on_shared_files(tmp_path, jax_params, pooling,
                                               normalize):

@@ -112,13 +112,24 @@ def no_rfe_env(monkeypatch):
         monkeypatch.delenv(key)
 
 
+# the port's own fields (the native generator's settings) at their defaults
+PORT_ONLY = {"generator_backend": "auto"}
+
+
+def _shared(cfg) -> dict:
+    """The port's fields that the JAX config has too; its own at their defaults."""
+    d = dataclasses.asdict(cfg)
+    assert {k: d.pop(k) for k in PORT_ONLY} == PORT_ONLY
+    return d
+
+
 def test_configs_are_equal(no_rfe_env, tmp_path):
-    assert dataclasses.asdict(JCfg()) == dataclasses.asdict(TCfg())
+    assert dataclasses.asdict(JCfg()) == _shared(TCfg())
     kw = dict(base_dir=tmp_path, index_kind="ivf", ivf_nlist=64, index_metric="IP")
-    assert dataclasses.asdict(JCfg(**kw)) == dataclasses.asdict(TCfg(**kw))
+    assert dataclasses.asdict(JCfg(**kw)) == _shared(TCfg(**kw))
     (tmp_path / ".env").write_text("RFE_TOP_K=7\nRFE_IVF_BALANCE='reassign'\n# note\n")
     a, b = JCfg.from_env(tmp_path, batch_size=8), TCfg.from_env(tmp_path, batch_size=8)
-    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert dataclasses.asdict(a) == _shared(b)
     assert (b.top_k, b.ivf_balance, b.batch_size) == (7, "reassign", 8)
     for cls in (JCfg, TCfg):
         with pytest.raises(ValueError, match="index_metric"):

@@ -31,6 +31,7 @@ from rag_faiss_embedding_tpu_torch.serve.api import make_app
 from rag_faiss_embedding_tpu_torch.utils import timers
 from rag_faiss_embedding_tpu_torch.utils.profiling import device_trace
 from rag_faiss_embedding_tpu_torch.utils.timers import StageTimer, span
+from tests.ref_deepseek_v2 import random_weights
 
 WAIT_S = 60.0
 WORDS = ["vector", "search", "tensor", "cores", "shard", "merge", "query", "index",
@@ -296,3 +297,53 @@ def test_stage_timer_keeps_its_summary_on_the_monotonic_clock(monkeypatch):
     assert list(st) == ["count", "total_s", "mean_s", "p50_s", "p99_s"]
     assert st["count"] == 2 and 2.5 <= st["total_s"] < 2.6 and st["p99_s"] == 2.5
     assert timer.report().splitlines()[1].startswith("batch_search(n=3)")
+
+
+def _native_generator(tmp_path, answer=4):
+    """The native generator (models/deepseek_v2.py) at a small size: one
+    dense and two MoE layers, 8 experts of which 2 a token."""
+    hf = {"vocab_size": 64, "hidden_size": 32, "intermediate_size": 64,
+          "moe_intermediate_size": 16, "num_hidden_layers": 3, "num_attention_heads": 2,
+          "n_routed_experts": 8, "n_shared_experts": 2, "num_experts_per_tok": 2,
+          "first_k_dense_replace": 1, "moe_layer_freq": 1, "kv_lora_rank": 16,
+          "q_lora_rank": None, "qk_nope_head_dim": 16, "qk_rope_head_dim": 8,
+          "v_head_dim": 16, "rope_theta": 10000, "rms_norm_eps": 1e-6,
+          "rope_scaling": {"type": "yarn", "factor": 40, "beta_fast": 32, "beta_slow": 1,
+                           "mscale": 0.707, "mscale_all_dim": 0.707,
+                           "original_max_position_embeddings": 4096},
+          "norm_topk_prob": False, "routed_scaling_factor": 1,
+          "max_position_embeddings": 2048, "torch_dtype": "float32"}
+    (tmp_path / "config.json").write_text(json.dumps(hf))
+    (tmp_path / "vocab.txt").write_text("\n".join(_embedder().tokenizer.vocab) + "\n")
+    cfg = Config(base_dir=tmp_path, generator_backend="native", generator_model=str(tmp_path),
+                 generation_max_length=answer)
+    gen = AnswerGenerator.from_config(cfg, device="cpu")
+    gen.load_state_dict(random_weights(hf, 0, "cpu"))
+    return gen
+
+
+def test_generator_spans_and_expert_counter(tmp_path):
+    gen = _native_generator(tmp_path)
+    context = " ".join(WORDS * 2)
+    gen.generate("latency of the card", context)  # the first call reserves the cache
+    assert timers.spans() == [] and timers.dropped() == 0  # no profiler: nothing
+    with _cpu_profile():
+        answer = gen.generate("latency of the card", context)
+    records = timers.spans()
+    _assert_nested(records)
+    by = _by_name(records)
+    assert sorted(by) == ["generator.decode", "generator.generate", "generator.prefill",
+                          "generator.to_host"]
+    [root], [prefill], [decode] = (by["generator.generate"], by["generator.prefill"],
+                                   by["generator.decode"])
+    n = root["counts"]["prompt_tokens"]
+    assert root["parent"] is None and root["counts"]["new_tokens"] == 4
+    assert answer == gen.native.tokenizer.decode(gen.native.last_ids)
+    assert prefill["parent"] == root["id"] and decode["parent"] == root["id"]
+    assert prefill["counts"]["tokens"] == n
+    experts = prefill["counts"]["expert_tokens"]
+    assert len(experts) == 8 and sum(experts) == n * 2 * 2  # 2 a token, two MoE layers
+    assert decode["counts"] == {"steps": 3, "context": n}
+    copies = by["generator.to_host"]
+    assert len(copies) == 4  # one a token
+    assert [c["parent"] for c in copies] == [prefill["id"]] + [decode["id"]] * 3
