@@ -22,6 +22,15 @@ config #4, a 10M x 384 flat scan split over devices):
 JAX's all-gather rides the interconnect; here the merge is a copy of k
 candidates per query and shard to the first device (nothing moves where the
 shards share a card).
+
+The order of a search's work is what lets the shards scan at once. Every
+shard's copy of the query is made before the first kernel launch: a copy
+from one card to another runs on the source card's stream, so made after
+that card's launch it would wait behind its scan. ``ShardedFlatIndex``
+leaves a query from the host there, so each card's copy comes straight
+from the host. The launches then follow each other with no other host
+work between them, and the global-id offsets and the merge come after the
+last.
 """
 
 from __future__ import annotations
@@ -50,17 +59,14 @@ def merge_shards(parts, k: int, metric: str, device) -> Tuple[torch.Tensor, torc
     """Merge per-shard (values, global ids) on ``device``: concatenated in
     shard order, the top ``min(k, columns)`` by score (L2 ascending, IP
     descending; id -1 never wins), ties to the lowest position; values of
-    empty slots become inf / -inf."""
+    empty slots become inf / -inf. One stable descending sort selects them,
+    in the order ``small_topk``'s k argmax passes give, in a few ops."""
     vals = torch.cat([v.to(device) for v, _ in parts], 1)
     ids = torch.cat([i.to(device) for _, i in parts], 1)
-    scores = torch.where(ids >= 0, -vals if metric == "L2" else vals,
-                         torch.full_like(vals, dist_ops.NEG_INF))
-    _, pos = dist_ops.stable_topk(scores, min(k, vals.shape[1]))
-    pos = pos.long()
+    scores = torch.where(ids >= 0, -vals if metric == "L2" else vals, dist_ops.NEG_INF)
+    pos = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :k]
     out_i = ids.gather(1, pos)
-    out_v = torch.where(out_i >= 0, vals.gather(1, pos),
-                        torch.full_like(vals[:, :1], _fill(metric)))
-    return out_v, out_i
+    return torch.where(out_i >= 0, vals.gather(1, pos), _fill(metric)), out_i
 
 
 def pad_to_k(vals: torch.Tensor, ids: torch.Tensor, k: int, metric: str):
@@ -159,19 +165,24 @@ def sharded_exact_search(
         raise ValueError(f"{q.shape[0]} queries do not split over {data_axis}={len(rows)}")
     step = q.shape[0] // len(rows)
     home = mesh.devices[rows[0][0]]
+    live = [min(max(nv - j * rows_per_dev, 0), rows_per_dev) for j in range(n_dev)]
+    queries = []
+    for i, r in enumerate(rows):
+        with span("sharded.query_copy", cards=len(r)):
+            qg = q[i * step:(i + 1) * step]
+            queries.append([qg.to(mesh.devices[p]) for p in r])
+    found = [[] for _ in rows]
+    for i, r in enumerate(rows):
+        for j in range(len(r)):
+            with span("sharded.shard_scan", shard=j, rows=live[j]):
+                found[i].append(flat_scan.flat_search(
+                    queries[i][j], shards[i][j], k_eff, metric=metric, db_sq=sq[i][j],
+                    n_valid=live[j], dead=dd[i][j], chunk_size=chunk_size))
     out_v, out_i = [], []
     for i, r in enumerate(rows):
-        qg = q[i * step:(i + 1) * step]
-        parts = []
-        for j, p in enumerate(r):
-            dev, start = mesh.devices[p], j * rows_per_dev
-            live = max(nv - start, 0)
-            with span("sharded.shard_scan", shard=j, rows=min(live, rows_per_dev)):
-                v, ix = flat_scan.flat_search(
-                    qg.to(dev), shards[i][j], k_eff, metric=metric, db_sq=sq[i][j],
-                    n_valid=live, dead=dd[i][j], chunk_size=chunk_size)
-                parts.append((v, torch.where(ix >= 0, ix + start, torch.full_like(ix, -1))))
-        with span("sharded.merge", shards=len(parts)):
+        with span("sharded.merge", shards=len(r), candidates=len(r) * k_eff):
+            parts = [(v, torch.where(ix >= 0, ix + j * rows_per_dev, -1) if j else ix)
+                     for j, (v, ix) in enumerate(found[i])]  # global ids; -1 stays
             v, ix = merge_shards(parts, k, metric, mesh.devices[r[0]])
             out_v.append(v.to(home))
             out_i.append(ix.to(home))
@@ -312,7 +323,7 @@ class ShardedFlatIndex:
             blocks = [block[j * per:(j + 1) * per].to(d) for j, d in enumerate(self.devices)]
             dead = blocks if dead is None else [a | b for a, b in zip(dead, blocks)]
         return sharded_exact_search(
-            self.mesh, q.to(device=self.device, dtype=self.dtype), self._buf, k,
+            self.mesh, q.to(dtype=self.dtype), self._buf, k,
             metric=self.metric, db_sq=self._sq, n_valid=self.ntotal, chunk_size=chunk_size,
             db_axis=self.db_axis, selector=self.selector, dead=dead)
 

@@ -180,6 +180,64 @@ def test_dead_rows_k_past_rows_per_dev_and_ties_across_shards(rng, metric):
         assert (ids[:, :live] >= 0).all() and (ids[:, live:] == -1).all()
 
 
+def _merge_by_argmax_passes(parts, k, metric):
+    """The merge as it was selected before the sort: the concatenated
+    candidates' scores, then min(k, columns) masked-argmax passes, each
+    taking the best left, ties to the lowest position."""
+    vals = torch.cat([v for v, _ in parts], 1)
+    ids = torch.cat([i for _, i in parts], 1)
+    scores = torch.where(ids >= 0, -vals if metric == "L2" else vals,
+                         torch.full_like(vals, torch.finfo(torch.float32).min))
+    cur = scores.clone()
+    pos = []
+    for _ in range(min(k, vals.shape[1])):
+        i = torch.argmax(cur, dim=1, keepdim=True)
+        pos.append(i)
+        cur.scatter_(1, i, float("-inf"))
+    pos = torch.cat(pos, 1)
+    out_i = ids.gather(1, pos)
+    fill = float("inf") if metric == "L2" else float("-inf")
+    return torch.where(out_i >= 0, vals.gather(1, pos), torch.full_like(vals[:, :1], fill)), out_i
+
+
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+@pytest.mark.parametrize("metric", ["L2", "IP"])
+@pytest.mark.parametrize("k", [1, 10, 16, 17, 1000])
+def test_merge_shards_selects_as_the_argmax_passes_did(n_shards, metric, k):
+    """``merge_shards``'s sort against the argmax passes it replaced, on
+    candidates with exact ties within and across shards (a few values
+    only, 0 among them), empty slots (id -1 with inf / -inf, as the scan
+    gives them) and shards of unequal widths: the same values and ids, bit
+    for bit. A valid slot scored -inf (an L2 distance at inf) is where the
+    passes went wrong, taking a taken position again once only -inf was
+    left; the sort takes each position once."""
+    from rag_faiss_embedding_tpu_torch.parallel.sharded import merge_shards
+
+    rng = np.random.default_rng(1000 * n_shards + k + (metric == "IP"))
+    fill = float("inf") if metric == "L2" else float("-inf")
+    parts = []
+    for j in range(n_shards):
+        width = 6 + 2 * (j % 3)
+        vals = rng.integers(0, 5, (48, width)).astype(np.float32)
+        ids = (j * 1000 + rng.permutation(1000)[:width])[None].repeat(48, 0)
+        empty = rng.random((48, width)) < 0.2
+        vals[empty], ids[empty] = fill, -1
+        if j == 0:
+            vals[:4], ids[:4] = fill, -1  # rows with a shard left empty
+        parts.append((torch.from_numpy(vals), torch.from_numpy(ids.astype(np.int32))))
+    got = merge_shards(parts, k, metric, CPU)
+    want = _merge_by_argmax_passes(parts, k, metric)
+    assert got[1].dtype == torch.int32 and got[0].shape == want[0].shape
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    for v, i in parts:
+        v[(torch.rand(v.shape, generator=torch.Generator().manual_seed(k)) < 0.1)
+          & (i >= 0)] = fill
+    for row in merge_shards(parts, k, metric, CPU)[1].tolist():
+        taken = [i for i in row if i >= 0]
+        assert len(taken) == len(set(taken))
+
+
 # ------------------------------------------------------------ ShardedFlatIndex
 def _pair(dim, n_dev=4, **kw):
     return (TSharded(dim, tmesh({"db": n_dev}), **kw),

@@ -161,3 +161,46 @@ def test_shards_on_several_cards_launch_on_their_own_card():
         got = sharded_exact_search(grid, qe, pts, 10, data_axis="data")
         assert F.flat_search.launches - before == n and got[0].device == first
         _agree(got, one.search(qe, 10))
+
+
+@pytest.mark.cuda
+def test_every_card_s_scan_starts_while_the_first_card_s_runs():
+    """One search over a shard on each visible card (two or more), 2,097,152
+    rows of 384 a shard so each scan runs over a millisecond: every other
+    card's first stage-1 K1 starts before the first card's K1 ends. A query
+    copied after the first launch would wait behind that launch's scan."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs (one shard on each)")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_faiss_embedding_tpu_torch.parallel import sharded_exact_search
+
+    mesh = make_mesh()
+    cards = mesh.axis_devices("db")
+    gen = [torch.Generator(device=c).manual_seed(j) for j, c in enumerate(cards)]
+    shards = [torch.randn((2_097_152, 384), device=c, generator=g) for c, g in zip(cards, gen)]
+    sq = [(s * s).sum(1) for s in shards]
+    q = torch.randn((1, 384), device=cards[0], generator=gen[0])
+
+    def search():
+        out = sharded_exact_search(mesh, q, shards, 10, db_sq=sq)
+        for c in cards:
+            torch.cuda.synchronize(c)
+        return out
+
+    for _ in range(3):  # the build, the launch shapes, the allocator
+        search()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        search()
+    first = {}
+    for e in sorted(prof.profiler.kineto_results.events(), key=lambda e: e.start_ns()):
+        if e.device_type() == DeviceType.CUDA and any(
+                n in e.name() for n in ("scan_partial", "scan_tiled")):
+            first.setdefault(e.device_index(), (e.start_ns(), e.start_ns() + e.duration_ns()))
+    assert sorted(first) == [c.index for c in cards]
+    end0 = first[cards[0].index][1]
+    assert end0 - first[cards[0].index][0] > 500_000  # the scan runs over 0.5 ms
+    late = {c: first[c][0] - first[cards[0].index][0] for c in first}
+    assert all(first[c.index][0] < end0 for c in cards[1:]), late
+    print("K1 start after the first card's, ns:", late)

@@ -139,14 +139,16 @@ def test_sharded_search_gives_one_root_with_every_stage():
     assert root["name"] == "vector_store.search"
     assert root["counts"] == {"queries": 2, "k": 5}
     by = _by_name(records)
-    assert sorted(by) == ["index.search", "sharded.merge", "sharded.shard_scan",
-                          "vector_store.map_ids", "vector_store.search",
-                          "vector_store.to_host"]
+    assert sorted(by) == ["index.search", "sharded.merge", "sharded.query_copy",
+                          "sharded.shard_scan", "vector_store.map_ids",
+                          "vector_store.search", "vector_store.to_host"]
     [search] = by["index.search"]
     scans = by["sharded.shard_scan"]
     assert [s["counts"] for s in scans] == [{"shard": j, "rows": 1024} for j in range(4)]
-    assert all(s["parent"] == search["id"] for s in scans + by["sharded.merge"])
-    assert [m["counts"] for m in by["sharded.merge"]] == [{"shards": 4}]
+    assert all(s["parent"] == search["id"]
+               for s in by["sharded.query_copy"] + scans + by["sharded.merge"])
+    assert [c["counts"] for c in by["sharded.query_copy"]] == [{"cards": 4}]
+    assert [m["counts"] for m in by["sharded.merge"]] == [{"shards": 4, "candidates": 20}]
     assert [r["parent"] for r in by["vector_store.to_host"] + by["vector_store.map_ids"]
             + [search]] == [root["id"]] * 3
     assert by["vector_store.map_ids"][0]["counts"] == {"hits": 10}
@@ -155,8 +157,48 @@ def test_sharded_search_gives_one_root_with_every_stage():
     # the stages in the order they ran
     order = sorted(records, key=lambda r: r["t0_ns"])
     assert [r["name"] for r in order] == (
-        ["vector_store.search", "index.search"] + ["sharded.shard_scan"] * 4
+        ["vector_store.search", "index.search", "sharded.query_copy"]
+        + ["sharded.shard_scan"] * 4
         + ["sharded.merge", "vector_store.to_host", "vector_store.map_ids"])
+
+
+def test_every_shard_s_query_is_on_its_card_before_the_first_launch(monkeypatch):
+    """A copy between cards runs on the source card's stream, so a copy made
+    after the first shard's launch would wait behind its scan: every query
+    a shard's scan receives comes from a copy to that shard's card made
+    before the first launch, and nothing is copied between the launches."""
+    from rag_faiss_embedding_tpu_torch.ops import flat_scan
+
+    store, rows = _sharded_store()
+    log, inside = [], []
+    real_to, real_search = torch.Tensor.to, flat_scan.flat_search
+
+    def to(self, *args, **kwargs):
+        out = real_to(self, *args, **kwargs)
+        if not inside:  # the scan's own (plain version's) moves are not the search's
+            log.append(("copy", out, out.device))
+        return out
+
+    def flat_search(q, db, *args, **kwargs):
+        log.append(("launch", q, db.device))
+        inside.append(1)
+        try:
+            return real_search(q, db, *args, **kwargs)
+        finally:
+            inside.pop()
+
+    monkeypatch.setattr(flat_scan, "flat_search", flat_search)
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    store.search(rows[:2], 5)
+    monkeypatch.undo()
+    kinds = [kind for kind, _, _ in log]
+    first, last = kinds.index("launch"), len(kinds) - kinds[::-1].index("launch")
+    assert kinds[first:last] == ["launch"] * 4
+    launches = [(q, dev) for kind, q, dev in log[first:last]]
+    copies = [(q, dev) for kind, q, dev in log[:first] if kind == "copy"]
+    for q, dev in launches:
+        assert q.shape == (2, 16)
+        assert any(q is c and dev == d for c, d in copies)
 
 
 def test_manager_add_gives_the_ingest_spans(tmp_path):
