@@ -1,11 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's query path once on one NVIDIA GPU, and check it.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU, and check them.
 
 Run from the repository root, with one CUDA card visible:
 
     python3 chip_smoke.py
 
-Phases, one JSON object per line:
+It answers one question: does each path of the port on the card give the
+answer its plain version, or the CPU, gives? It times nothing: the cells'
+end-to-end and per-layer numbers are ``perfbench/``'s, the kernels' A/B
+times ``rag_faiss_embedding_tpu_torch/benchmarks/scan_kernels.py``'s and the
+training step's ``benchmarks/train_mesh.py``'s. The kernels' small and ragged
+cases are the ``cuda`` tests' (``tests/test_torch_flat_scan.py``,
+``tests/test_torch_pq_card.py`` and their neighbours); this script holds the
+paths at full size. Phases, in the order they run, one JSON object per line:
 
 1. env: torch / CUDA versions and the card (``nvidia-smi``'s name and power
    limit, also printed raw on the line after it).
@@ -13,31 +20,28 @@ Phases, one JSON object per line:
    ``csrc/union_scan.cu``, ``csrc/pq_decode.cu``, ``csrc/fused_proto.cu`` and
    ``csrc/kernel_probe.cu`` for sm_90a, all at once.
 3. kernel: the flat-scan kernel against its plain torch version on the same
-   CUDA tensors, over a grid of metrics, dtypes, Q, N, D and k, plus edge
-   cases, k above KMAX (to 5,000, whose lists live in global memory), 30%
-   of the rows dead, rows wider than a shared-memory tile, and the 1,048,576 x 384
-   float32 database at Q = 1, 16, 64, 256 and 1,024; both timed with CUDA
-   events (median of 10 after warm-up). There, each stage-1 path of the
-   kernel (one query per warp, the tiled block) is forced at each Q of
-   CROSSOVER_Q, held to the plain version and timed: the measurements that
-   place the wrapper's crossover between them.
+   CUDA tensors over the 1,048,576 x 384 float32 database: each stage-1 path
+   (one query per warp, the tiled block) forced at each Q of CROSSOVER_Q,
+   the Q on both sides of the wrapper's crossover between them.
 4. slice: MiniLM-L6 at full width (seeded random weights) ->
    ``RAGManager.initialize_database`` over 4,096 documents -> 8
    ``QueryEngine.search`` requests, one 16-query ``search_batch``, one
    answer -> save, reload in a second manager, search again. Checked
    against the same pipeline and plain scan on the CPU, and the kernel
    against its plain version at the path's own shapes (Q = 1 and Q = 16).
-   The encoder's bf16 compute mode, at full width with the same weights,
-   embeds the slice's queries, held to the float32 CPU pipeline by cosine
-   (> 0.99).
    Then one request for 100 hits, above the tiled path's KMAX: the kernel
-   serves it (one launch) and it is held to the CPU index. The kernel phase
-   holds K1 to its plain version at k up to 5,000 and with dead rows too.
-5. trace: the same engine, warm: request latency on the host clock, its
-   stages (tokenize, embed, scan, SQLite), a ``torch.profiler`` trace of 8
-   requests (device busy time per request, by kernel, and the device's idle
-   share), and the encoder's device time at 1, 16 and 32 rows (bf16 beside
-   float32 under ``encoder_bf16``).
+   serves it (one launch) and it is held to the CPU index. The encoder's
+   bf16 compute mode, at full width with the same weights, embeds the
+   slice's queries, held to the float32 CPU pipeline by cosine (> 0.99).
+5. fused_proto: the IVF prototype (``benchmarks.fused_proto.search``, UCAP =
+   QC = 256, BB 16, KP 10, k 10) over phase 6's index, untouched, at Q =
+   1,024, through K5 and through its plain version: recall@10 of both
+   against the exact top-10 (the IVF gate), distances within the tolerance
+   and ids that differ only at near-ties (``proto_search_check``); K5
+   against ``block_topk_reference`` (``block_topk_check``: the tensor cores
+   sum in another order, so scores to rtol, ids carrying their own float64
+   scores) at the path's shapes, kp 1 and 32, a cell with 3 live rows and a
+   row twice in one cell (both exact).
 6. ivf_kernel: 1,048,576 x 384 rows of bench.py's distribution (8,192
    Gaussian modes, rows = mode + 0.7 noise, queries = a row + 0.3 noise),
    made on the card from a seeded generator, in ``IVFFlatIndex(384,
@@ -46,78 +50,86 @@ Phases, one JSON object per line:
    dispatch and at nprobe 16, through union-scan variants 1 and 2 and the
    plain chunk body; recall@10 of each against the exact float32 flat top-10
    (the port's ``FlatIndex``); each kernel against ``union_scan_reference``
-   on the same card tensors at those shapes, CUDA-event times of both; then
-   removed rows under variant 2 and k past the candidates. Before those,
-   on the untouched index, phase 10.
-7. ivf_slice: ``RAGManager(index_kind="ivf", ivf_nlist=64)`` over the same
-   4,096 documents as the slice phase, the same requests, save and reload,
-   checked against the saved index searched on the CPU through the kernel's
-   plain version; and its trace (as phase 5).
-8. pq_kernel: the PQ decode kernel against ``decode_reference`` on the same
-   card tensors, bit for bit, over D = 384 with M 16 / 48 / 96 and D = 768
-   with M 96, ksub 16 and 256, bf16 and f32 codebooks, N from 0 to
-   1,048,576: the rows its paths launch it on (``PQ_PATH_ROWS``, at M 48),
-   both sides of each end of the band of N where the plan stages the
-   codebook (``pq_decode.staged_rows``) and whole tiles +-1 row;
-   CUDA-event times of both. Then phase 6's 1M rows in
-   ``PQIndex(384, m=48)``, ``IVFFlatIndex(384, nlist=8192, pq_m=48,
-   balance="reassign", train_iters=10)`` and the same IVF-PQ with
-   ``rerank=True`` (int8 refine, depth 64; its coarse quantizer and codec
-   reused): build times and stats, searches at k = 10, Q = 1 and 1,024, at
-   nprobe 8 and at the first nprobe whose union streams in more than one
-   segment, through the kernel (``backend="auto"``) and the plain decode
-   (``"xla"``), which must return identical ids and values; recall@10 of each
-   against the exact float32 top-10 (information: the codec bounds it); the
-   kernel against its plain version at the path's shapes.
-9. pq_slice: ``RAGManager(index_kind="pq")``, then ``RAGManager(
-   index_kind="ivf", ivf_nlist=64, ivf_pq_m=48)``, over the slice's
-   documents and requests, saved and reloaded, checked against the saved
-   index searched on the CPU through the plain decode (each id carries its
-   own ADC distance to the decoded reconstruction); the kernel against its
-   plain version at the path's shapes, and each manager's trace.
-
-10. fused_proto: the IVF prototype (``benchmarks.fused_proto.search``, UCAP =
-    QC = 256, BB 16, KP 10, k 10) over phase 6's index at Q = 1,024, through
-    K5 and through its plain version: recall@10 of both against the exact
-    top-10 (the IVF gate), distances within the tolerance and ids that
-    differ only at near-ties (``proto_search_check``); K5 against
-    ``block_topk_reference`` (``block_topk_check``: the tensor cores sum in
-    another order, so scores to rtol, ids carrying their own float64
-    scores) at the path's shapes, kp 1 and 32, a cell with 3 live rows and
-    a row twice in one cell (both exact); CUDA-event times of K5, its plain
-    version, both searches and ``IVFFlatIndex.search``.
-11. kernel_probe: ``benchmarks.kernel_probe.run`` at the script's shape
-    (synthetic blocks, nlist 8,192, window 256, D 384, QC 256, U 260, BB 10,
-    CAP 2, 4 chunks): each variant timed, then held to ``probe_reference``
-    (``probe_check``: values to rtol plus two packing quanta, each carrying
-    its own block's float64 score; NaN bins exact), ``chain`` to ``temps``
-    bit for bit, and a crafted negative-subnormal score that ``temps_f32``
-    keeps as a NaN.
-12. bounds: each kernel's bound at the 1M shapes (the least time for its
-    bytes at 3.35 TB/s or its operations at the peak of the unit the exact
-    result needs), beside the times the earlier phases took there (K4 at 1M
-    rows with ``F.embedding``, from phase 8's grid), each with its achieved
-    TFLOP/s and its share of the bound (bound_ms / ms).
-
-13. int8 (after phase 6, on its coarse quantizer): phase 6's 1M rows and
-    queries made again from the seed; the exact float32 top-10 from a float
-    ``FlatIndex(selector="approx")`` search, which must launch K1 once; int8
-    ``FlatIndex``es with the "exact", "approx" and "rerank" selectors: add
-    time, bytes per row, recall@10 at Q 1 and 1,024 ("rerank" >= 0.99 at Q
-    1,024, the JAX package's gate), CUDA-event search times, each held to the
-    same index moved to the CPU; ``torch._int_mm`` against the plain product
-    of the codes at the path's shapes (a query block x 524,288 rows), bit for
-    bit, both timed; a profile of the rerank index's searches; then
-    ``IVFFlatIndex(384, nlist=8192, dtype="int8", train_iters=10,
-    balance="reassign")`` with its bf16 shadow: build time, recall@10 (>=
-    RECALL_MIN) and search times at Q 1 and 1,024, held to the CPU.
-14. int8_slice: ``RAGManager(Config(index_dtype="int8"))``, flat and IVF
+   on the same card tensors at those shapes; then removed rows under
+   variant 2 and k past the candidates.
+7. int8 (on phase 6's coarse quantizer): phase 6's 1M rows and queries made
+   again from the seed; the exact float32 top-10 from a float
+   ``FlatIndex(selector="approx")`` search, which must launch K1 once; int8
+   ``FlatIndex``es with the "exact", "approx" and "rerank" selectors: bytes
+   per row, recall@10 at Q 1 and 1,024 ("rerank" >= 0.99 at Q 1,024, the JAX
+   package's gate), each held to the same index moved to the CPU;
+   ``torch._int_mm`` against the plain product of the codes at the path's
+   shapes (a query block x 524,288 rows), bit for bit; then
+   ``IVFFlatIndex(384, nlist=8192, dtype="int8", train_iters=10,
+   balance="reassign")`` with its bf16 shadow: recall@10 (>= RECALL_MIN) at
+   Q 1 and 1,024, held to the CPU.
+8. chunked (on phase 6's coarse quantizer): the JAX record's 10M shape,
+   ``IVFFlatIndex(384, nlist=16384, nprobe=16, pq_m=48, train_iters=10,
+   rerank=True, refine_dtype="bfloat16", rerank_depth=128,
+   balance="spill")`` built by ``build_chunked`` over 10,485,760 rows of
+   bench.py's distribution in chunks of 524,288, the rows made on the card
+   as a pure function of (start, size): the build's stages, window, spill
+   rows, the device's peak memory by stage against the resident bytes and a
+   working-set bound set by the chunk and the score tile (not by n), host
+   memory; the exact float32 top-10 of 1,024 queries streamed through the
+   flat-scan kernel; searches at nprobe 8, 16 and 32, Q 1 and 1,024
+   (recall@10 and @1 as information), the decode kernel bit for bit against
+   the plain decode. Then three chunked builds at 1M on phase 6's rows:
+   IVF-PQ ``balance="spill"`` pinned to a dense build's training (the same
+   slots, codes differing only at near-tie codewords), ``balance="reassign"``
+   at cap_factor 1.3 (every row placed or pending, window within the cap,
+   spilled rows find themselves), and bf16 storage through the union-scan
+   kernel (recall@10 >= RECALL_MIN, kernel vs plain as phase 6 holds them).
+9. sharded: a mesh of every card on a "db" axis, or of 4 shards on the one
+   card (printed on its own line with the device count).
+   ``ShardedFlatIndex`` over BASELINE.md config #4, 10,485,760 x 384 float32
+   rows of bench.py's distribution made on the card and added chunk by
+   chunk (capacity set up front): k 10 at Q 1 and 1,024, then with 30% of
+   the rows removed and under a filter, each held to the streamed ground
+   truth, one K1 launch per shard per search, K1 against its plain version
+   on a shard. ``ShardedIVFIndex(nlist 8,192)`` over phase 6's rows on phase
+   6's centroids: bf16 (K2 per shard), int8 and IVF-PQ M 48 (K4 per shard);
+   recall@10 at nprobe 8 and 16, Q 1 and 1,024 (bf16 and int8 >= RECALL_MIN
+   and within RECALL_SLACK of a one-card ``IVFFlatIndex`` on the same
+   centroids); the kernel routes against the plain ones (K4 bit for bit);
+   K2 against its plain version on two shards. The bf16 index saved through
+   ``VectorStore`` and reloaded onto the same mesh (bit-exact, no build) and
+   with no mesh (every visible card, re-striped). The slice's 4,096
+   documents served by ``QueryEngine`` from a ``sharded_ivf`` file of their
+   embeddings (K2 on every shard; probing every list, the one-card IVF
+   engine's answers).
+10. ivf_slice: ``RAGManager(index_kind="ivf", ivf_nlist=64)`` over the same
+    4,096 documents as the slice phase, the same requests, save and reload,
+    checked against the saved index searched on the CPU through the
+    kernel's plain version.
+11. pq_kernel: the PQ decode kernel against ``decode_reference`` on the
+    same card tensors, bit for bit, over D = 384 with M 16 / 48 / 96 and D
+    = 768 with M 96, ksub 16 and 256, bf16 and f32 codebooks, N from 0 to
+    1,048,576: the rows its paths launch it on (``PQ_PATH_ROWS``, at M 48),
+    both sides of each end of the band of N where the plan stages the
+    codebook (``pq_decode.staged_rows``) and whole tiles +-1 row. Then
+    phase 6's 1M rows in ``PQIndex(384, m=48)``, ``IVFFlatIndex(384,
+    nlist=8192, pq_m=48, balance="reassign", train_iters=10)`` and the same
+    IVF-PQ with ``rerank=True`` (int8 refine, depth 64; its coarse quantizer
+    and codec reused): stats, searches at k = 10, Q = 1 and 1,024, at nprobe
+    8 and at the first nprobe whose union streams in more than one segment,
+    through the kernel (``backend="auto"``) and the plain decode
+    (``"xla"``), which must return identical ids and values; recall@10 of
+    each against the exact float32 top-10 (information: the codec bounds
+    it); the kernel against its plain version at the path's shapes.
+12. pq_slice: ``RAGManager(index_kind="pq")``, then ``RAGManager(
+    index_kind="ivf", ivf_nlist=64, ivf_pq_m=48)``, over the slice's
+    documents and requests, saved and reloaded, checked against the saved
+    index searched on the CPU through the plain decode (each id carries its
+    own ADC distance to the decoded reconstruction); the kernel against its
+    plain version at the path's shapes.
+13. int8_slice: ``RAGManager(Config(index_dtype="int8"))``, flat and IVF
     (nlist 64), over the slice's documents and requests: saved, reloaded
     (the flat one still "rerank", the IVF one with its shadow), each
     request's results held to the saved index searched on the CPU, and
     ``torch._int_mm`` run on every search.
-15. serve: the port's HTTP server (``serve.api.make_app``) in this process on
-    ``127.0.0.1:0`` over a flat ``RAGManager`` of the slice's 4,096
+14. serve: the port's HTTP server (``serve.api.make_app``) in this process
+    on ``127.0.0.1:0`` over a flat ``RAGManager`` of the slice's 4,096
     documents at full MiniLM-L6 width (``serve_max_batch`` 64, the default 2
     ms window, no periodic watchdog): one watchdog probe; ``/health``; 256
     ``POST /search`` requests (top_k 1-10 from the seed) from 64 client
@@ -127,73 +139,38 @@ Phases, one JSON object per line:
     top_k; 32 sequential requests; a filtered request (K1 with its mask) and
     one that generates an answer; two documents added, found, deleted and
     gone; 400 / 422 / 404 / 405. Then the same server over an IVF manager
-    (nlist 64): 64 concurrent requests, K2 launched, held to the CPU the same
-    way. Then ``cli.pipeline`` over ``examples/corpus`` (5 pages indexed)
-    and ``cli.selfindex`` over the port's package (one document per ``.py``
-    file) at once, then ``cli.search`` for one page's text (its title
-    first), each a subprocess on the card. HTTP latency p50 / p99 on the host
-    clock, the batch sizes and the launches.
-
-16. chunked (after phase 13, on phase 6's coarse quantizer): the JAX
-    record's 10M shape, ``IVFFlatIndex(384, nlist=16384, nprobe=16,
-    pq_m=48, train_iters=10, rerank=True, refine_dtype="bfloat16",
-    rerank_depth=128, balance="spill")`` built by ``build_chunked`` over
-    10,485,760 rows of bench.py's distribution in chunks of 524,288, the
-    rows made on the card as a pure function of (start, size): the build's
-    stages, window, spill rows, the device's peak memory by stage against
-    the resident bytes and a working-set bound set by the chunk and the
-    score tile (not by n), host memory; the exact float32 top-10 of 1,024
-    queries streamed through the flat-scan kernel; searches at nprobe 8, 16
-    and 32, Q 1 and 1,024 (recall@10 and @1 as information, CUDA-event
-    ms), the decode kernel bit for bit against the plain decode. Then three
-    chunked builds at 1M on phase 6's rows: IVF-PQ ``balance="spill"``
-    pinned to a dense build's training (the same slots, codes differing only
-    at near-tie codewords), ``balance="reassign"`` at cap_factor 1.3 (every
-    row placed or pending, window within the cap, spilled rows find
-    themselves), and bf16 storage through the union-scan kernel (recall@10
-    >= RECALL_MIN, kernel vs plain as phase 6 holds them).
-17. train: full-width MiniLM-L6 with a vocabulary trained on the slice's
+    (nlist 64): 64 concurrent requests, K2 launched, held to the CPU the
+    same way. Then ``cli.pipeline`` over ``examples/corpus`` (5 pages
+    indexed) and ``cli.selfindex`` over the port's package (one document
+    per ``.py`` file) at once, then ``cli.search`` for one page's text (its
+    title first), each a subprocess on the card. The batch sizes and the
+    launches.
+15. train: full-width MiniLM-L6 with a vocabulary trained on the slice's
     documents (8,192): one step from the same parameters and first batch
     (32 x 128) on the card and the CPU (loss within 1e-4 relative, each
     gradient within 1e-4 of its tensor's largest entry (at least 1e-2 of the
-    model's largest), every weight within
-    lr / 100 but where the gradient is below 1e-6 (the attention key
-    biases, whose exact gradient is zero, among them): there within 1.01 x
-    lr of its start); the same first step and two more on a {"data": 2,
-    "model": 2} mesh over four repeated positions of the card (data and
-    tensor parallel), held the same way to the one-card step on the card,
-    the losses of all three within 1e-4 relative, CUDA-event ms per step of
-    both in turns; a checkpoint saved from the mesh restored on one card bit
-    for bit, its next step held to the mesh's; ``cli.train.train`` over the
-    four positions logging JAX's mesh; ``cli.train.train``
-    at the CLI's defaults (200 steps, batch 32, max_len 128, lr 2e-5) with a
-    checkpoint and exported params: ms per step, sequences and tokens per
-    second, peak device memory, the loss falling; two more steps from the
-    restored checkpoint equal to two from memory, bit for bit (both under
-    torch's deterministic algorithms: the default kernels are not
-    bit-reproducible from run to run); then
-    ``cli.train`` as a subprocess (20 steps) and a ``RAGManager`` on what it
-    wrote, indexing the slice's documents and serving its requests through
-    the flat-scan kernel.
-18. sharded (after phase 16): a mesh of every card on a "db" axis, or of
-    4 shards on the one card (printed on its own line with the device
-    count). ``ShardedFlatIndex`` over BASELINE.md config #4, 10,485,760 x
-    384 float32 rows of bench.py's distribution made on the card and added
-    chunk by chunk (capacity set up front): k 10 at Q 1 and 1,024, then with
-    30% of the rows removed and under a filter, each held to the streamed
-    ground truth, one K1 launch per shard per search, CUDA-event ms, K1
-    against its plain version on a shard. ``ShardedIVFIndex(nlist 8,192)``
-    over phase 6's rows on phase 6's centroids: bf16 (K2 per shard), int8
-    and IVF-PQ M 48 (K4 per shard); recall@10 at nprobe 8 and 16, Q 1 and
-    1,024 (bf16 and int8 >= RECALL_MIN and within RECALL_SLACK of a one-card
-    ``IVFFlatIndex`` on the same centroids); the kernel routes against the
-    plain ones (K4 bit for bit); K2 against its plain version on two shards;
-    a profile of the bf16 searches. The bf16 index saved through
-    ``VectorStore`` and reloaded onto the same mesh (bit-exact, no build)
-    and with no mesh (every visible card, re-striped). The slice's 4,096
-    documents served by ``QueryEngine`` from a ``sharded_ivf`` file of
-    their embeddings (K2 on every shard; probing every list, the one-card
-    IVF engine's answers).
+    model's largest), every weight within lr / 100 but where the gradient
+    is below 1e-6 (the attention key biases, whose exact gradient is zero,
+    among them): there within 1.01 x lr of its start); the same first step
+    and two more on a {"data": 2, "model": 2} mesh over four repeated
+    positions of the card (data and tensor parallel), held the same way to
+    the one-card step on the card, the losses of all three within 1e-4
+    relative; a checkpoint saved from the mesh restored on one card bit for
+    bit, its next step held to the mesh's; ``cli.train.train`` over the four
+    positions logging JAX's mesh; ``cli.train.train`` at the CLI's defaults
+    (200 steps, batch 32, max_len 128, lr 2e-5) with a checkpoint and
+    exported params: peak device memory, the loss falling; two more steps
+    from the restored checkpoint equal to two from memory, bit for bit (both
+    under torch's deterministic algorithms: the default kernels are not
+    bit-reproducible from run to run); then ``cli.train`` as a subprocess
+    (20 steps) and a ``RAGManager`` on what it wrote, indexing the slice's
+    documents and serving its requests through the flat-scan kernel.
+16. kernel_probe: at ``benchmarks.kernel_probe``'s shape (synthetic blocks,
+    nlist 8,192, window 256, D 384, QC 256, U 260, BB 10, CAP 2, 4 chunks):
+    each variant held to ``probe_reference`` (``probe_check``: values to
+    rtol plus two packing quanta, each carrying its own block's float64
+    score; NaN bins exact), ``chain`` to ``temps`` bit for bit, and a
+    crafted negative-subnormal score that ``temps_f32`` keeps as a NaN.
 
 Then a ``{"kernels": [...]}`` line (launch counts from each kernel's path,
 with a ``paths`` breakdown: the flat scan's from the slice, the server, the
@@ -201,16 +178,12 @@ with a ``paths`` breakdown: the flat scan's from the slice, the server, the
 union-scan variant 1's from the IVF slice, the IVF server, the chunked bf16
 build and the sharded IVF (1M and the slice), variant 2's from the IVF
 kernel phase, the PQ decode's from the PQ slice, the 10M searches and the
-sharded IVF-PQ (with the rows of its launches on each path, and its times
-at a shard's union: per call and device time),
-K5's from the prototype search, K6's from the probe's run; each with its
-bound at the path's shape, its achieved TFLOP/s and share of that bound,
-and the one-call library time where one exists)
-and, last, ``{"ok": true, "device":
-{...}}``. Any failed check raises, so the script exits non-zero without the
-last line. It needs no network and loads nothing of JAX or the JAX
-package; it exits non-zero where no CUDA device is present or the port's
-package is not beside it.
+sharded IVF-PQ, K5's from the prototype search, K6's from the probe's
+checks; each with its largest kernel-vs-plain error) and, last, ``{"ok":
+true, "device": {...}}``. Any failed check raises, so the script exits
+non-zero without the last line. It needs no network and loads nothing of
+JAX or the JAX package; it exits non-zero where no CUDA device is present or
+the port's package is not beside it.
 """
 
 import concurrent.futures
@@ -223,7 +196,6 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -240,13 +212,6 @@ FP_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/fused_proto.cu"
 FP_REPLACES = "benchmarks/pallas_fused_proto.py:71"
 KP_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/kernel_probe.cu"
 KP_REPLACES = "benchmarks/pallas_kernel_probe.py:57"
-# The card's published peaks (H100 SXM, dense): HBM bytes per second, and
-# operations per second of the unit an exact result needs: FP32 outside the
-# tensor cores for float32 storage, bf16 tensor cores (float32 accumulation,
-# exact products) for bf16 storage, int8 tensor cores (int32 accumulation)
-# for the int8 tier's product.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # top-level packages the port must never load
 FORBIDDEN_MODULES = ("jax", "flax", "optax", "orbax", "rag_faiss_embedding_tpu")
 N_DOCS = 4096
@@ -260,77 +225,14 @@ RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
 # float32 summation order separates the tensor cores from the plain version,
 # so they are held to float32's rtol
 RTOL_EXACT_PRODUCTS = RTOL["float32"]
-# Q of the 1M x 384 float32 flat scans: each stage-1 path of K1 is timed at
-# each, to place the wrapper's crossover between them (ops/flat_scan.py)
+# Q of the 1M x 384 float32 flat scans: each stage-1 path of K1 is held to
+# the plain version at each, on both sides of the wrapper's crossover
+# (ops/flat_scan.TILED_MIN_Q)
 CROSSOVER_Q = (1, 7, 16, 24, 25, 32, 64, 256, 1024)
-CASE_COLUMNS = ["case", "dtype", "metric", "Q", "N", "D", "k", "n_valid",
-                "max_abs_err", "id_mismatch", "ms", "plain_ms"]
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def cuda_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
-    """Median device time of ``fn`` in ms over ``reps`` CUDA-event runs."""
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_ms(torch, fn, reps: int = 20) -> float:
-    """Device time of ``fn`` in ms: the summed time of the kernels it
-    launches, over ``reps`` warm calls, from ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back with device events missing
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if len(on_card) >= reps:  # fn launches at least one kernel a call
-            return sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / reps
-    raise AssertionError("torch.profiler missed the device's kernels three times")
-
-
-def host_us(torch, fn, reps: int) -> float:
-    """Host-clock time of one call of ``fn`` in microseconds: ``reps``
-    back-to-back calls with no synchronize in between (fewer than the
-    launch queue holds, so the host does not wait for the device)."""
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    us = (time.perf_counter() - t) / reps * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
-def rows_histogram(rows) -> dict:
-    """K4's rows per launch on one path: count, min, median, max, and the
-    launches in each power-of-two bucket (key: the bucket's upper bound)."""
-    hist = {}
-    for n in rows:
-        b = 1 << max(0, int(n) - 1).bit_length()
-        hist[b] = hist.get(b, 0) + 1
-    return {"launches": len(rows), "min": min(rows, default=None),
-            "median": statistics.median(rows) if rows else None,
-            "max": max(rows, default=None),
-            "buckets": {str(b): hist[b] for b in sorted(hist)}}
 
 
 # ------------------------------------------------------------------ phase 3
@@ -363,98 +265,41 @@ def assert_same_topk(torch, q, db, kv, ki, pv, pi, metric, rtol, n_valid=None):
     return err, int((ki != pi).sum())
 
 
-def check_scan(torch, F, q, db, db_sq, k, metric, n_valid=None, dead=None):
+def check_scan(torch, F, q, db, db_sq, k, metric, n_valid=None):
     """Kernel vs plain on the same CUDA tensors; returns (max_abs_err,
-    id mismatches, kernel ids). No row marked ``dead`` may come back."""
-    kw = dict(metric=metric, db_sq=db_sq, n_valid=n_valid, dead=dead)
+    id mismatches)."""
+    kw = dict(metric=metric, db_sq=db_sq, n_valid=n_valid)
     kv, ki = F.flat_search(q, db, k, **kw)
     torch.cuda.synchronize()
     pv, pi = F.flat_search_reference(q, db, k, **kw)
     rtol = RTOL["bfloat16" if db.dtype == torch.bfloat16 else "float32"]
-    err, mism = assert_same_topk(torch, q, db, kv, ki, pv, pi, metric, rtol, n_valid)
-    if dead is not None and bool(dead[ki.clamp_min(0).long()][ki >= 0].any()):
-        raise AssertionError("a dead row came back")
-    return err, mism, ki
+    return assert_same_topk(torch, q, db, kv, ki, pv, pi, metric, rtol, n_valid)
 
 
 def kernel_phase(torch, F):
+    """Each stage-1 path of K1, forced, against the plain version over
+    1,048,576 x 384 float32 rows (norms precomputed, as the index keeps
+    them) at each Q of CROSSOVER_Q, k 10: the largest error of each path
+    there, and the path the wrapper chooses."""
     from rag_faiss_embedding_tpu_torch.ops.distance import sqnorms
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    randn = lambda *s: torch.randn(*s, generator=g, device="cuda")
-    cases, max_err = [], 0.0
-
-    def run(name, q, db, k, metric, n_valid=None, dead=None):
-        nonlocal max_err
-        # row norms come precomputed, as the index keeps them
-        db_sq = sqnorms(db)
-        err, mism, ki = check_scan(torch, F, q, db, db_sq, k, metric, n_valid, dead)
-        max_err = max(max_err, err)
-        kw = dict(metric=metric, db_sq=db_sq, n_valid=n_valid, dead=dead)
-        row = [name, str(db.dtype).removeprefix("torch."), metric, q.shape[0],
-               db.shape[0], db.shape[1], k, n_valid, err, mism,
-               cuda_ms(torch, lambda: F.flat_search(q, db, k, **kw)),
-               cuda_ms(torch, lambda: F.flat_search_reference(q, db, k, **kw))]
-        cases.append(row)
-        return ki
-
-    for d in (16, 384):
-        qs = {nq: randn(nq, d) for nq in (1, 7, 1024)}
-        for n in (1000, 65536):
-            base = randn(n, d)
-            for dtype in (torch.float32, torch.bfloat16):
-                db = base.to(dtype)
-                for metric in ("L2", "IP"):
-                    for nq, q in qs.items():
-                        for k in (1, 5, 10, 64):
-                            run("grid", q.to(dtype), db, k, metric)
-    for metric in ("L2", "IP"):
-        db, q = randn(65536, 384), randn(7, 384)
-        run("n_valid<N", q, db, 10, metric, n_valid=40000)
-        ki = run("k>n_valid", q, db, 10, metric, n_valid=3)
-        if not bool((ki[:, 3:] == -1).all()):
-            raise AssertionError("k > n_valid must give -1 past the live rows")
-        row = randn(1, 384)
-        ki = run("identical rows", row, row.repeat(5000, 1), 10, metric)
-        if ki[0].tolist() != list(range(10)):
-            raise AssertionError(f"ties must go to the lowest ids, got {ki[0].tolist()}")
-        run("ragged Q,N", randn(37, 100), randn(12345, 100), 10, metric)
-        # k above KMAX (the warp path's long lists; 5,000 in global memory),
-        # and tombstones / filters as the kernel's dead rows
-        dead = torch.rand(65536, generator=g, device="cuda") < 0.3
-        for nq, k in ((1, 100), (7, 100), (256, 100), (1, 1000), (7, 1000)):
-            run("k>KMAX", randn(nq, 384), db, k, metric)
-        run("k>KMAX", randn(7, 384), db[:8192], 5000, metric)  # lists in global memory
-        for nq, k in ((1, 10), (7, 100), (256, 10)):
-            run("dead rows", randn(nq, 384), db, k, metric, dead=dead)
-    # rows wider than a shared-memory tile go in column chunks; 1030 takes
-    # the scalar staging path, 2048 the 16-byte one
-    for d in (1030, 2048):
-        base = randn(12345, d)
-        for dtype in (torch.float32, torch.bfloat16):
-            for metric in ("L2", "IP"):
-                for nq in (1, 37):
-                    run("wide rows", randn(nq, d).to(dtype), base.to(dtype), 10, metric)
-    big = randn(1 << 20, 384)
+    big = torch.randn(1 << 20, 384, generator=g, device="cuda")
     big_sq = sqnorms(big)
-    paths = {}
+    paths, max_err = {}, 0.0
     for nq in CROSSOVER_Q:
-        q = randn(nq, 384)
-        if nq in (1, 16, 64, 256, 1024):  # the default path, checked and timed
-            run("1M x 384", q, big, 10, "L2")
-        # each stage-1 path forced: held to the plain version, then timed
+        q = torch.randn(nq, 384, generator=g, device="cuda")
+        pv, pi = F.flat_search_reference(q, big, 10, db_sq=big_sq)
         paths[nq] = {"chosen": next(k for k, v in F.PATHS.items() if v == F.choose_path(nq))}
         for name in F.PATHS:
-            kw = dict(db_sq=big_sq, path=name)
-            kv, ki = F.flat_search(q, big, 10, **kw)
+            kv, ki = F.flat_search(q, big, 10, db_sq=big_sq, path=name)
             torch.cuda.synchronize()
-            pv, pi = F.flat_search_reference(q, big, 10, db_sq=big_sq)
-            err, _ = assert_same_topk(torch, q, big, kv, ki, pv, pi, "L2", RTOL["float32"])
+            err, mism = assert_same_topk(torch, q, big, kv, ki, pv, pi, "L2", RTOL["float32"])
             max_err = max(max_err, err)
-            paths[nq][name] = cuda_ms(torch, lambda: F.flat_search(q, big, 10, **kw))
+            paths[nq][name] = {"max_abs_err": err, "id_mismatch": mism}
     del big, big_sq
     torch.cuda.empty_cache()
-    return cases, max_err, paths
+    return paths, max_err
 
 
 # ------------------------------------------------------------------ phase 4
@@ -526,21 +371,12 @@ def drive_slice(torch, cfg, docs, queries, batch_queries):
     from rag_faiss_embedding_tpu_torch.rag import QueryEngine, RAGManager
 
     cuda = torch.device("cuda")
-    t0 = time.perf_counter()
     manager = RAGManager(config=cfg, device=cuda)
     n = manager.initialize_database(docs)
-    torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t0
     engine = QueryEngine(manager.db, manager.vector_store, manager.embedder,
                          generator=AnswerGenerator(backend="extractive"))
-    latencies, singles = [], []
-    for text in queries:
-        t = time.perf_counter()
-        singles.append(engine.search(text, top_k=5))
-        latencies.append((time.perf_counter() - t) * 1e3)
-    t = time.perf_counter()
+    singles = [engine.search(text, top_k=5) for text in queries]
     batch = engine.search_batch(batch_queries, top_k=5)
-    batch_ms = (time.perf_counter() - t) * 1e3
     answer = engine.generate_response(batch_queries[-1], batch[-1])
     manager.vector_store.save_index()
     convert.export_params(
@@ -553,9 +389,8 @@ def drive_slice(torch, cfg, docs, queries, batch_queries):
     singles2 = [engine2.search(text, top_k=5) for text in queries]
     torch.cuda.synchronize()
     return types.SimpleNamespace(
-        manager=manager, reloaded=reloaded, engine=engine, n=n, ingest_s=ingest_s,
-        latencies=latencies, singles=singles, singles2=singles2, batch=batch,
-        batch_ms=batch_ms, answer=answer, searches=len(queries) * 2 + 1)
+        manager=manager, reloaded=reloaded, engine=engine, n=n, singles=singles,
+        singles2=singles2, batch=batch, answer=answer, searches=len(queries) * 2 + 1)
 
 
 def check_slice(run, docs, picks, min_self_hits: int) -> int:
@@ -605,10 +440,7 @@ def check_against_cpu(torch, run, cpu_index, rows, queries, batch_queries, rtol)
 def slice_summary(run, phase: str, self_hits: int, top5_mismatch: int,
                   batch_mismatch: int) -> dict:
     """The fields every slice phase reports."""
-    return {"phase": phase, "documents": run.n, "ingest_s": run.ingest_s,
-            "request_ms": run.latencies,
-            "request_ms_median": statistics.median(run.latencies),
-            "batch16_ms": run.batch_ms, "self_retrieval": f"{self_hits}/8",
+    return {"phase": phase, "documents": run.n, "self_retrieval": f"{self_hits}/8",
             "searches": run.searches, "top5_id_mismatch_vs_cpu": top5_mismatch,
             "batch_top5_id_mismatch_vs_cpu": batch_mismatch,
             "answer_chars": len(run.answer)}
@@ -659,16 +491,9 @@ def slice_phase(torch, F, workdir: Path):
     shapes = {}
     for emb in (card_emb[:1], batch_emb):
         q = torch.from_numpy(emb).to(cuda)
-        err, mism, _ = check_scan(torch, F, q, index._buf, index._sq, 5, "L2",
-                                  index.ntotal)
-        args = (q, index._buf, 5)
-        kw = dict(db_sq=index._sq, n_valid=index.ntotal)
-        shapes[f"Q={q.shape[0]}"] = {
-            "N": index.ntotal, "D": index.dim, "k": 5,
-            "max_abs_err": err, "id_mismatch": mism,
-            "ms": cuda_ms(torch, lambda: F.flat_search(*args, **kw)),
-            "plain_ms": cuda_ms(torch, lambda: F.flat_search_reference(*args, **kw)),
-        }
+        err, mism = check_scan(torch, F, q, index._buf, index._sq, 5, "L2", index.ntotal)
+        shapes[f"Q={q.shape[0]}"] = {"N": index.ntotal, "D": index.dim, "k": 5,
+                                     "max_abs_err": err, "id_mismatch": mism}
     # a request for 100 hits (above the tiled path's KMAX): K1 serves it,
     # held to the CPU index
     before = F.flat_search.launches
@@ -683,116 +508,41 @@ def slice_phase(torch, F, workdir: Path):
     k100_err, k100_mism = assert_same_topk(
         torch, torch.from_numpy(q1), torch.from_numpy(cpu_index.vectors()),
         kv.cpu(), ki.cpu(), cv, ci, "L2", RTOL["float32"])
-    trace = trace_phase(torch, run.engine, queries, batch_queries)
-    trace["encoder_bf16"] = bf16_encoder_check(torch, manager.embedder, cpu_pipe,
-                                               queries + batch_queries)
+    bf16 = bf16_encoder_check(torch, manager.embedder, cpu_pipe, queries + batch_queries)
     manager.cleanup()
     run.reloaded.cleanup()
-    return trace, {
+    return {
         **slice_summary(run, "slice", self_hits, top5_mismatch, batch_mismatch),
         "encoder": dataclasses.asdict(manager.embedder.cfg),
         "flat_scan_launches": launches, "embedding_max_abs_err_vs_cpu": emb_err,
-        "main_path_kernel_times": shapes,
+        "main_path_kernel_cases": shapes, "encoder_bf16": bf16,
         "top_k_100": {"kernel_launches": k100_launches, "hits": len(hits),
                       "max_abs_err_vs_cpu": k100_err, "id_mismatch_vs_cpu": k100_mism},
     }
 
 
-# ------------------------------------------------------------------ phase 5
-def device_busy_ms(events):
-    """Union of the device intervals of profiler ``events``, in ms, and the
-    device time by kernel name."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    by_name = {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    return busy_us / 1e3, by_name
-
-
-def trace_phase(torch, engine, queries, batch_queries):
-    """Where a warm request's time goes, on the host clock and the device's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def bf16_encoder_check(torch, embedder, cpu_pipe, texts) -> dict:
+    """The encoder's bf16 compute mode at full width on the card, with the
+    slice's weights: its embeddings of ``texts`` against the float32 CPU
+    pipeline's by cosine (> 0.99, the JAX package's bar)."""
     import numpy as np
 
-    emb, store = engine.embedder, engine.vector_store
-    for text in queries:  # warm every shape the requests take
-        engine.search(text, top_k=5)
-    wall = []
-    for text in queries * 3:
-        t = time.perf_counter()
-        engine.search(text, top_k=5)
-        wall.append((time.perf_counter() - t) * 1e3)
-    stages = {"tokenize": [], "embed_query": [], "vector_store.search": [],
-              "sqlite_fetch": []}
-    for text in queries:
-        t = time.perf_counter()
-        emb.tokenizer.encode_batch([text], emb.max_seq_length)
-        stages["tokenize"].append((time.perf_counter() - t) * 1e3)
-        t = time.perf_counter()
-        vec = emb.embed_query(text)  # ends in a device-to-host copy
-        stages["embed_query"].append((time.perf_counter() - t) * 1e3)
-        t = time.perf_counter()
-        _, ids = store.search(vec, 5)  # so does this
-        stages["vector_store.search"].append((time.perf_counter() - t) * 1e3)
-        t = time.perf_counter()
-        engine.db.get_documents_by_ids(ids)
-        stages["sqlite_fetch"].append((time.perf_counter() - t) * 1e3)
+    from rag_faiss_embedding_tpu_torch.models import EmbeddingPipeline
+    from rag_faiss_embedding_tpu_torch.models import convert
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for text in queries:
-            engine.search(text, top_k=5)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t) * 1e3
-    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms, by_name = device_busy_ms(on_card)
-    n = len(queries)
-    wall_ms = statistics.median(wall)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-
-    # the encoder's device time by batch rows, at the batch's sequence bucket
-    ids, mask = emb.tokenizer.encode_batch(batch_queries, emb.max_seq_length)
-    ids32 = np.pad(ids, ((0, 32 - len(ids)), (0, 0)), constant_values=emb.tokenizer.pad_id)
-    mask32 = np.pad(mask, ((0, 32 - len(mask)), (0, 0)))
-    encoder_ms = {rows: cuda_ms(torch, lambda: emb._forward(ids32[:rows], mask32[:rows]))
-                  for rows in (1, 16, 32)}
-    return {
-        "phase": "trace", "requests": len(wall), "request_ms_median": wall_ms,
-        "request_ms_min": min(wall), "request_ms_max": max(wall),
-        "stage_ms_median": {k: statistics.median(v) for k, v in stages.items()},
-        "traced_requests": n, "traced_ms_per_request": traced_ms / n,
-        "device_busy_ms_per_request": busy_ms / n if on_card else None,
-        "device_ops_per_request": len(on_card) / n,
-        # busy time against the untraced median; the traced wall is longer
-        "idle_share": 1 - busy_ms / n / wall_ms if on_card else None,
-        "idle_share_traced": 1 - busy_ms / traced_ms if on_card else None,
-        "device_ms_per_request_by_kernel": [[name[:70], us / 1e3 / n] for name, us in top],
-        "encoder_seq_bucket": int(ids.shape[1]),
-        "encoder_ms_by_rows": encoder_ms,
-    }
+    cfg = dataclasses.replace(embedder.cfg, dtype="bfloat16")
+    pipe = EmbeddingPipeline(
+        params=convert.to_flax_params(embedder.model.state_dict(), embedder.cfg), cfg=cfg,
+        tokenizer=embedder.tokenizer, max_seq_length=embedder.max_seq_length,
+        device=torch.device("cuda"))
+    got, want = pipe.generate_embeddings(texts), cpu_pipe.generate_embeddings(texts)
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    if not np.isfinite(got).all() or float(cos.min()) <= 0.99:
+        raise AssertionError(f"bf16 encoder cosine to the f32 CPU pipeline {cos.min()}")
+    return {"texts": len(texts), "cosine_min_vs_f32_cpu": float(cos.min())}
 
 
 # ------------------------------------------------------------------ phase 6
-def host_ms(torch, fn, reps: int) -> float:
-    """Median host-clock time of ``fn`` ending in a synchronize, in ms."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-    return statistics.median(times)
-
-
 def union_args(S, idx, q, k: int, variant: int, nprobe=None):
     """The union-scan call ``idx.search(q, k, nprobe)`` makes on the kernel
     route (same coarse stage, union and padding), and its dispatch."""
@@ -861,67 +611,6 @@ def union_check(torch, U, idx, args, k: int):
         raise AssertionError("union-scan ids do not carry their scores")
     return err, int((ki != pi).sum())
 
-
-def scan_work(torch, qs, u_all, ids2, nq: int, out_bytes: int) -> dict:
-    """What a union-block scan over (chunks, qc, D) queries ``qs``, of which
-    the first ``nq`` are real (the rest copies that pad the last chunk), and
-    blocks of ids ``ids2`` (blocks, window) must do: the bytes it moves
-    (each distinct block's rows, norms and ids read once, the real queries
-    and the union read, ``out_bytes`` written) and its operations (a
-    multiply and an add per dimension for each real query of a chunk and
-    each live row of the chunk's distinct blocks: the sentinel block and
-    dead rows need none), with the storage dtype whose peak rate applies."""
-    chunks, qc, d = qs.shape
-    item = qs.element_size()
-    blocks = int(torch.unique(u_all).numel())
-    live = (ids2 >= 0).sum(1)
-    pairs = sum(min(max(nq - c * qc, 0), qc) * int(live[torch.unique(u_all[c]).long()].sum())
-                for c in range(chunks))
-    return {"bytes": blocks * ids2.shape[1] * (d * item + 8) + nq * d * item
-            + u_all.numel() * 4 + out_bytes,
-            "flops": 2 * pairs * d, "dtype": str(qs.dtype).removeprefix("torch.")}
-
-
-def union_work(torch, U, args, nq: int) -> dict:
-    """``scan_work`` of one union-scan call for ``nq`` real queries."""
-    chunks, qc, _ = args["qs"].shape
-    lanes = 2 * U.KPAD if args["ktop"] else args["cap"] * args["window"]
-    return scan_work(torch, args["qs"], args["u_all"],
-                     args["sorted_ids"].view(-1, args["window"]), nq, chunks * qc * lanes * 4)
-
-
-def flat_work(q: int, n: int, d: int, k: int) -> dict:
-    """What the exact float32 flat scan of ``q`` queries over ``n`` rows of
-    ``d`` must do: rows, norms and queries read once, (values, ids) of the
-    top ``k`` written; a multiply and an add per query, row and dimension."""
-    return {"bytes": n * (d + 1) * 4 + q * d * 4 + q * k * 8, "flops": 2 * q * n * d,
-            "dtype": "float32"}
-
-
-def search_profile(torch, idx, q, reps: int) -> dict:
-    """``torch.profiler`` over ``reps`` warm ``idx.search(q, 10)`` calls:
-    traced wall and device busy time per search, the idle share, and the
-    device time by kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    idx.search(q, 10)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(reps):
-            idx.search(q, 10)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3 / reps
-    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms, by_name = device_busy_ms(on_card)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"traced_ms_per_search": wall_ms, "device_busy_ms_per_search": busy_ms / reps,
-            "device_ops_per_search": len(on_card) / reps,
-            "idle_share_traced": 1 - busy_ms / reps / wall_ms,
-            "device_ms_per_search_by_kernel": [[n[:70], us / 1e3 / reps] for n, us in top]}
-
-
 IVF_ROUTES = (("union_scan v1", "auto", 1), ("union_scan v2", "auto", 2),
               ("plain chunk body", "xla", 1))
 
@@ -944,27 +633,24 @@ def bench_rows(torch):
 
 def ivf_build(torch):
     """bench.py's 1M rows in ``IVFFlatIndex(384, nlist=8192,
-    dtype="bfloat16", train_iters=10, balance="reassign")``: (index, build
-    seconds, the 1,024 queries, their exact float32 top-10)."""
+    dtype="bfloat16", train_iters=10, balance="reassign")``: (index, the
+    1,024 queries, their exact float32 top-10)."""
     from rag_faiss_embedding_tpu_torch.index import FlatIndex, IVFFlatIndex
 
     cuda = torch.device("cuda")
     db, queries = bench_rows(torch)
-    t0 = time.perf_counter()
     idx = IVFFlatIndex(IVF_DIM, nlist=IVF_NLIST, dtype="bfloat16", train_iters=10,
                        balance="reassign", device=cuda)
     idx.build(db)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     flat = FlatIndex(IVF_DIM, capacity=IVF_N, device=cuda)
     flat.add(db)
     _, truth = flat.search(queries, 10)  # exact float32 top-10
     del flat, db
     torch.cuda.empty_cache()
-    return idx, build_s, queries, truth
+    return idx, queries, truth
 
 
-def ivf_kernel_phase(torch, idx, build_s, queries, truth):
+def ivf_kernel_phase(torch, idx, queries, truth):
     from rag_faiss_embedding_tpu_torch.benchmarks.fused_proto import recall_at
     from rag_faiss_embedding_tpu_torch.ops import ivf_scan as S
     from rag_faiss_embedding_tpu_torch.ops import union_scan as U
@@ -984,8 +670,6 @@ def ivf_kernel_phase(torch, idx, build_s, queries, truth):
                 "route": name, "nprobe": nprobe or idx.nprobe,
                 "recall@10_q1": recall_at(ids1, truth[:len(single)]),
                 "recall@10_q1024": recall_at(ids, truth),
-                "search_ms_q1": host_ms(torch, lambda: idx.search(single[:1], 10, nprobe=nprobe), 10),
-                "search_ms_q1024": host_ms(torch, lambda: idx.search(queries, 10, nprobe=nprobe), 5),
             })
     torch.cuda.synchronize()
     launches = dict(U.union_scan.variant_launches)
@@ -997,12 +681,8 @@ def ivf_kernel_phase(torch, idx, build_s, queries, truth):
                     raise AssertionError(f"{r['route']} nprobe {r['nprobe']} {key} "
                                          f"{r[key]} (plain {plain[key]})")
 
-    # where a search's time goes: host wall vs device busy, by kernel
-    idx.backend, idx.pallas_variant = "auto", 1
-    profiles = {f"Q={q.shape[0]}": search_profile(torch, idx, q, reps)
-                for q, reps in ((single[:1], 8), (queries, 3))}
-
     # each kernel against its plain version at the path's shapes
+    idx.backend, idx.pallas_variant = "auto", 1
     cases, max_err = [], {1: 0.0, 2: 0.0}
     for nprobe in (None, 16):
         for nq in (1, IVF_Q):
@@ -1016,9 +696,6 @@ def ivf_kernel_phase(torch, idx, build_s, queries, truth):
                     "qc": args["qs"].shape[1], "U": args["u_all"].shape[1],
                     "window": args["window"], "ktop": args["ktop"],
                     "max_abs_err": err, "id_mismatch": mism,
-                    **union_work(torch, U, args, nq),
-                    "ms": cuda_ms(torch, lambda: U.union_scan(**args)),
-                    "plain_ms": cuda_ms(torch, lambda: U.union_scan_reference(**args)),
                 })
 
     # edges: removed rows stay out under variant 2; k past the candidates
@@ -1037,19 +714,15 @@ def ivf_kernel_phase(torch, idx, build_s, queries, truth):
         raise AssertionError("k past the candidates must pad with -1 / inf")
     return {
         "phase": "ivf_kernel", "N": IVF_N, "D": IVF_DIM, "nlist": idx.nlist,
-        "dtype": "bfloat16", "build_s": build_s,
-        "build_stats": {k: v for k, v in idx.build_stats.items() if k != "train"},
-        "train_stats": idx.build_stats.get("train"),
-        "window": idx._window, "spill_rows": idx._n_spill,
+        "dtype": "bfloat16", "window": idx._window, "spill_rows": idx._n_spill,
         "resolved_dispatch_q1": idx.resolved_dispatch(1),
         "resolved_dispatch_q1024": idx.resolved_dispatch(IVF_Q),
         "routes": routes, "path_launches": launches, "kernel_cases": cases,
-        "search_profile_v1": profiles,
         "removed": int(kill.numel()), "k_past_candidates": n_cand + 88,
     }, max_err
 
 
-# ------------------------------------------------------------------ phase 7
+# ----------------------------------------------------------------- phase 10
 def ivf_slice_phase(torch, workdir: Path):
     from rag_faiss_embedding_tpu_torch.core.config import Config
     from rag_faiss_embedding_tpu_torch.index import IVFFlatIndex
@@ -1099,37 +772,30 @@ def ivf_slice_phase(torch, workdir: Path):
             "chunks": args["qs"].shape[0], "qc": args["qs"].shape[1],
             "U": args["u_all"].shape[1], "window": args["window"], "D": index.dim,
             "k": 5, "nprobe": disp["nprobe"], "max_abs_err": err, "id_mismatch": mism,
-            **union_work(torch, U, args, q.shape[0]),
-            "ms": cuda_ms(torch, lambda: U.union_scan(**args)),
-            "plain_ms": cuda_ms(torch, lambda: U.union_scan_reference(**args)),
         }
-    trace = trace_phase(torch, run.engine, queries, batch_queries)
-    trace["phase"] = "ivf_trace"
     run.manager.cleanup()
     run.reloaded.cleanup()
-    return trace, {
+    return {
         **slice_summary(run, "ivf_slice", self_hits, top5_mismatch, batch_mismatch),
         "nlist": index.nlist, "window": index._window, "spill_rows": index._n_spill,
         "resolved_dispatch_q1": index.resolved_dispatch(1),
-        "union_scan_v1_launches": launches, "main_path_kernel_times": shapes,
+        "union_scan_v1_launches": launches, "main_path_kernel_cases": shapes,
         "max_abs_err": max_err,
     }
 
 
-# ------------------------------------------------------------------ phase 8
+# ----------------------------------------------------------------- phase 11
 PQ_ROUTES = (("pq_decode kernel", "auto"), ("plain decode", "xla"))
-PQ_DECODE_COLUMNS = ["D", "M", "ksub", "dtype", "N", "staged", "groups", "max_abs_err", "ms",
-                     "plain_ms"]
-# K4's rows per launch on its paths (the kernels line's rows_per_launch):
-# the PQ slice's 4,096 and 16,384, a shard's union of the sharded IVF-PQ
-# (16,384 and 32,768), union segments of the 10M chunked IVF-PQ (180,224
-# and 360,448), flat PQ's 524,288-row chunks
+PQ_DECODE_COLUMNS = ["D", "M", "ksub", "dtype", "N", "staged", "groups", "max_abs_err"]
+# K4's rows per launch on its paths: the PQ slice's 4,096 and 16,384, a
+# shard's union of the sharded IVF-PQ (16,384 and 32,768), union segments of
+# the 10M chunked IVF-PQ (180,224 and 360,448), flat PQ's 524,288-row chunks
 PQ_PATH_ROWS = (4096, 16384, 32768, 180224, 360448, 1 << 19)
 
 
-def decode_check(torch, PD, cb, codes):
+def decode_check(torch, PD, cb, codes) -> float:
     """K4 against ``decode_reference`` on the same card tensors, compared as
-    raw bits; returns (max_abs_err, ms, plain_ms)."""
+    raw bits; returns the max_abs_err (0 when the bits agree)."""
     out = PD.decode(cb, codes)
     torch.cuda.synchronize()
     ref = PD.decode_reference(cb, codes)
@@ -1138,38 +804,17 @@ def decode_check(torch, PD, cb, codes):
             or not torch.equal(out.view(bits), ref.view(bits))):
         raise AssertionError(f"pq_decode differs from its plain version: codes "
                              f"{tuple(codes.shape)}, codebook {tuple(cb.shape)} {cb.dtype}")
-    err = float((out.float() - ref.float()).abs().max()) if out.numel() else 0.0
-    del out, ref
-    return (err, cuda_ms(torch, lambda: PD.decode(cb, codes)),
-            cuda_ms(torch, lambda: PD.decode_reference(cb, codes)))
-
-
-def decode_library(torch, PD, cb, codes) -> dict:
-    """The one PyTorch call that computes K4's function, timed on the same
-    inputs (the index into the flattened codebook made outside the timing;
-    the call must return K4's bits), and the bytes the decode must move."""
-    import torch.nn.functional as Fn
-
-    m, ksub, dsub = cb.shape
-    flat = codes.long() + torch.arange(m, device=codes.device) * ksub
-    table = cb.reshape(m * ksub, dsub)
-    if not torch.equal(Fn.embedding(flat, table).reshape(codes.shape[0], m * dsub),
-                       PD.decode(cb, codes)):
-        raise AssertionError("F.embedding does not compute the PQ decode")
-    return {"library_ms": cuda_ms(torch, lambda: Fn.embedding(flat, table)),
-            "bytes": codes.numel() * (1 + dsub * cb.element_size())
-            + cb.numel() * cb.element_size()}
+    return float((out.float() - ref.float()).abs().max()) if out.numel() else 0.0
 
 
 def pq_decode_grid(torch, PD):
     """K4 over D = 384 with M 16 / 48 / 96 and D = 768 with M 96, ksub 16 and
     256, bf16 and f32 codebooks, N from 0 to 1,048,576 (``PQ_PATH_ROWS`` at
     M 48, ksub 256; the rows on both sides of each end of the staged band;
-    whole tiles +-1 row near 4,096 and 16,384 rows); at 1,048,576 rows of M
-    48 ksub 256 bf16 also its one-call library equivalent."""
+    whole tiles +-1 row near 4,096 and 16,384 rows)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     card = dict(zip(("sms", "smem_limit"), PD._card(torch.cuda.current_device())))
-    cases, max_err, at_1m = [], 0.0, None
+    cases, max_err = [], 0.0
     for d, m in ((384, 16), (384, 48), (384, 96), (768, 96)):
         for ksub in (16, 256):
             for dtype in (torch.bfloat16, torch.float32):
@@ -1186,16 +831,13 @@ def pq_decode_grid(torch, PD):
                 for n in sorted(rows):
                     codes = torch.randint(0, ksub, (n, m), generator=g,
                                           device="cuda").to(torch.uint8)
-                    err, ms, plain_ms = decode_check(torch, PD, cb, codes)
+                    err = decode_check(torch, PD, cb, codes)
                     max_err = max(max_err, err)
                     p = PD.plan(m, ksub, d // m, dtype, n, **card)
                     cases.append([d, m, ksub, str(dtype).removeprefix("torch."), n,
-                                  p["staged"], p["groups"], err, ms, plain_ms])
-                    if (d, m, ksub, dtype, n) == (384, 48, 256, torch.bfloat16, 1 << 20):
-                        at_1m = {"ms": ms, "plain_ms": plain_ms,
-                                 **decode_library(torch, PD, cb, codes)}
+                                  p["staged"], p["groups"], err])
     torch.cuda.empty_cache()
-    return cases, max_err, at_1m
+    return cases, max_err
 
 
 def pq_path_codes(S, idx, q, nprobe=None):
@@ -1219,7 +861,7 @@ def pq_routes(torch, idx, queries, truth, nprobe=None):
     """``idx.search`` at k = 10, Q = 1 (64 single queries) and Q = 1,024
     through the kernel and the plain decode. The two routes must return the
     same bits (the same decoded values feed the same product). One row per
-    route: recall@10 against ``truth`` and host-clock search times."""
+    route: recall@10 against ``truth``."""
     from rag_faiss_embedding_tpu_torch.benchmarks.fused_proto import recall_at
 
     kw = {} if nprobe is None else {"nprobe": nprobe}
@@ -1234,8 +876,6 @@ def pq_routes(torch, idx, queries, truth, nprobe=None):
             "route": name, "nprobe": nprobe,
             "recall@10_q1": recall_at(outs[-1][1], truth[:len(single)]),
             "recall@10_q1024": recall_at(i, truth),
-            "search_ms_q1": host_ms(torch, lambda: idx.search(single[:1], 10, **kw), 10),
-            "search_ms_q1024": host_ms(torch, lambda: idx.search(queries, 10, **kw), 5),
         })
     idx.backend = "auto"
     if not all(torch.equal(a, b) for a, b in zip(*outs)):
@@ -1253,7 +893,7 @@ def pq_kernel_phase(torch):
     from rag_faiss_embedding_tpu_torch.ops import pq_decode as PD
 
     cuda = torch.device("cuda")
-    grid, max_err, at_1m = pq_decode_grid(torch, PD)
+    grid, max_err = pq_decode_grid(torch, PD)
     db, queries = bench_rows(torch)
     flat = FlatIndex(IVF_DIM, capacity=IVF_N, device=cuda)
     flat.add(db)
@@ -1270,29 +910,27 @@ def pq_kernel_phase(torch):
             ("ivf_pq_refine", lambda: IVFFlatIndex(IVF_DIM, rerank=True, **ivf_kw))):
         idx = make()
         if name == "ivf_pq_refine":  # the same IVF-PQ: its coarse quantizer and codec
-            base = built["ivf_pq"][0]
+            base = built["ivf_pq"]
             idx.centroids, idx.is_trained = base.centroids, True
             idx.pq_codebooks = base.pq_codebooks
-        t0 = time.perf_counter()
         idx.build(db)
-        torch.cuda.synchronize()
-        built[name] = (idx, time.perf_counter() - t0)
+        built[name] = idx
     del db
     torch.cuda.empty_cache()
 
     indexes, cases = [], []
-    for name, (idx, build_s) in built.items():
-        entry = {"index": name, "build_s": build_s}
+    for name, idx in built.items():
+        entry = {"index": name}
         if name == "pq":
             entry.update(m=idx.m, ksub=idx.ksub, compute=idx.compute_dtype,
                          routes=pq_routes(torch, idx, queries, truth))
             cb = idx.codebooks.to(torch.bfloat16)
             for start in (0, 1 << 19):  # the scan's two 524,288-row chunks
                 codes = idx._codes[start:start + (1 << 19)]
-                err, ms, plain_ms = decode_check(torch, PD, cb, codes)
+                err = decode_check(torch, PD, cb, codes)
                 max_err = max(max_err, err)
                 cases.append({"index": name, "Q": "any", "rows": codes.shape[0],
-                              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                              "max_abs_err": err})
         else:
             useg_probe = None
             for nprobe in (32, 64, 128, 256, 512):
@@ -1306,32 +944,26 @@ def pq_kernel_phase(torch):
                 routes += pq_routes(torch, idx, queries, truth, nprobe)
                 for nq in (1, IVF_Q):
                     codes, disp, useg = pq_path_codes(S, idx, queries[:nq], nprobe)
-                    err, ms, plain_ms = decode_check(torch, PD, idx._pq_cb_compute(), codes)
+                    err = decode_check(torch, PD, idx._pq_cb_compute(), codes)
                     max_err = max(max_err, err)
                     cases.append({"index": name, "Q": nq, "nprobe": nprobe, "qc": disp["qc"],
                                   "union_cap": disp["union_cap"], "useg": useg,
-                                  "rows": codes.shape[0], "max_abs_err": err, "ms": ms,
-                                  "plain_ms": plain_ms})
+                                  "rows": codes.shape[0], "max_abs_err": err})
             entry.update(window=idx._window, spill_rows=idx._n_spill,
                          rerank=idx.rerank, refine_dtype=idx.refine_dtype,
                          rerank_depth=idx.rerank_depth, useg_nprobe=useg_probe,
-                         build_stats={k: v for k, v in idx.build_stats.items() if k != "train"},
-                         train_stats=idx.build_stats.get("train"),
                          resolved_dispatch_q1024=idx.resolved_dispatch(IVF_Q), routes=routes)
-        entry["search_profile"] = {f"Q={q.shape[0]}": search_profile(torch, idx, q, reps)
-                                   for q, reps in ((queries[:1], 8), (queries, 3))}
         indexes.append(entry)
     torch.cuda.synchronize()
     launches = PD.decode.launches
     if launches == 0:
         raise AssertionError("the PQ indexes never launched pq_decode")
     return {"phase": "pq_kernel", "N": IVF_N, "D": IVF_DIM, "decode_columns": PQ_DECODE_COLUMNS,
-            "decode_cases": grid, "decode_1M_M48_bf16": at_1m, "indexes": indexes,
-            "path_cases": cases,
+            "decode_cases": grid, "indexes": indexes, "path_cases": cases,
             "path_launches": launches}, max_err
 
 
-# ------------------------------------------------------------------ phase 9
+# ----------------------------------------------------------------- phase 12
 def pq_slice_run(torch, workdir: Path, label: str, **index_kw):
     """One PQ manager over the slice's documents and requests, checked
     against the saved index searched on the CPU through the plain decode.
@@ -1348,10 +980,9 @@ def pq_slice_run(torch, workdir: Path, label: str, **index_kw):
     cfg = Config(base_dir=workdir, model_name="chip-smoke-random-init", **index_kw)
     picks, queries, batch_queries = slice_requests(docs)
 
-    PD.decode.launches, PD.decode.rows = 0, []  # count the main path's launches only
+    PD.decode.launches = 0  # count the main path's launches only
     run = drive_slice(torch, cfg, docs, queries, batch_queries)
-    launches, launch_rows = PD.decode.launches, PD.decode.rows[:PD.decode.launches]
-    PD.decode.rows = None
+    launches = PD.decode.launches
 
     index = run.manager.vector_store.index
     is_ivf = label == "ivf_pq"
@@ -1398,44 +1029,37 @@ def pq_slice_run(torch, workdir: Path, label: str, **index_kw):
         else:
             codes = index._codes[:min(524288, index._capacity)]
             cb, extra = index.codebooks.to(torch.bfloat16), {}
-        err, ms, plain_ms = decode_check(torch, PD, cb, codes)
+        err = decode_check(torch, PD, cb, codes)
         max_err = max(max_err, err)
         shapes[f"Q={q.shape[0]}"] = {"rows": codes.shape[0], "M": codes.shape[1],
                                      "dtype": str(cb.dtype).removeprefix("torch."),
-                                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                     **decode_library(torch, PD, cb, codes), **extra}
-    trace = trace_phase(torch, run.engine, queries, batch_queries)
-    trace["phase"] = f"{label}_trace"
+                                     "max_abs_err": err, **extra}
     run.manager.cleanup()
     run.reloaded.cleanup()
     out = {**slice_summary(run, label, self_hits, top5_mismatch, batch_mismatch),
            "index_kind": cfg.index_kind, "pq_decode_launches": launches,
-           "pq_decode_rows": launch_rows,
-           "main_path_kernel_times": shapes, "max_abs_err": max_err}
+           "main_path_kernel_cases": shapes, "max_abs_err": max_err}
     if is_ivf:
         out.update(nlist=index.nlist, pq_m=index.pq_m, window=index._window,
                    spill_rows=index._n_spill, resolved_dispatch_q1=index.resolved_dispatch(1))
     else:
         out.update(m=index.m, compute=index.compute_dtype)
-    return trace, out
+    return out
 
 
 def pq_slice_phase(torch):
     """``RAGManager(index_kind="pq")``, then ``RAGManager(index_kind="ivf",
     ivf_nlist=64, ivf_pq_m=48)``, each in a fresh directory."""
-    out, traces = {"phase": "pq_slice"}, []
+    out = {"phase": "pq_slice"}
     for label, kw in (("pq", dict(index_kind="pq")),
                       ("ivf_pq", dict(index_kind="ivf", ivf_nlist=64, ivf_pq_m=48))):
         with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir:
-            trace, out[label] = pq_slice_run(torch, Path(workdir), label, **kw)
-        traces.append(trace)
+            out[label] = pq_slice_run(torch, Path(workdir), label, **kw)
     out["pq_decode_launches"] = sum(out[k]["pq_decode_launches"] for k in ("pq", "ivf_pq"))
-    out["pq_decode_rows_per_launch"] = rows_histogram(
-        out["pq"].pop("pq_decode_rows") + out["ivf_pq"].pop("pq_decode_rows"))
-    return traces, out
+    return out
 
 
-# ----------------------------------------------------------------- phase 13
+# ------------------------------------------------------------------ phase 7
 INT8_SELECTORS = ("exact", "approx", "rerank")
 INT8_CPU_Q = 8  # queries of the 1M int8 indexes held to the same index on the CPU
 
@@ -1473,29 +1097,20 @@ def int8_bytes_per_row(idx) -> int:
 
 def int_mm_case(torch, Q, q_i8, rows) -> dict:
     """``int8_dots`` (``torch._int_mm``) against the plain product of the
-    codes on the same card tensors: equal bit for bit, both timed, with the
-    product's bound (rows, queries read once, int32 out; int8 operations at
-    the tensor-core peak)."""
+    codes on the same card tensors: equal bit for bit."""
     got = Q.int8_dots(q_i8, rows)
     torch.cuda.synchronize()
     if not torch.equal(got, Q.int8_dots_reference(q_i8, rows)):
         raise AssertionError("torch._int_mm differs from the plain product of the codes")
-    nq, d = q_i8.shape
-    n = rows.shape[0]
-    bound_ms, bound_by = bound(n * d + nq * d + nq * n * 4, 2 * nq * n * d, "int8")
-    return {"Q": nq, "N": n, "D": d, "bit_equal": True,
-            "ms": cuda_ms(torch, lambda: Q.int8_dots(q_i8, rows)),
-            "plain_ms": cuda_ms(torch, lambda: Q.int8_dots_reference(q_i8, rows), reps=3),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"Q": q_i8.shape[0], "N": rows.shape[0], "D": q_i8.shape[1], "bit_equal": True}
 
 
 def int8_flat_run(torch, Q, db, queries, truth, x_sq_max: float):
     """The three selectors over bench.py's 1M rows in int8 ``FlatIndex``es:
-    add time, bytes per row, recall@10 at Q 1 (64 single queries) and Q
-    1,024 against the exact float32 top-10, CUDA-event search times; each
-    index held to the same index moved to the CPU at Q = INT8_CPU_Q. Returns
-    (entries, the rerank index, the int8 product's launches in the recall
-    searches)."""
+    bytes per row, recall@10 at Q 1 (64 single queries) and Q 1,024 against
+    the exact float32 top-10; each index held to the same index moved to the
+    CPU at Q = INT8_CPU_Q. Returns (entries, the rerank index, the int8
+    product's launches in the recall searches)."""
     from rag_faiss_embedding_tpu_torch.benchmarks.fused_proto import recall_at
     from rag_faiss_embedding_tpu_torch.index import FlatIndex
 
@@ -1503,11 +1118,8 @@ def int8_flat_run(torch, Q, db, queries, truth, x_sq_max: float):
     single, qh = queries[:64], queries[:INT8_CPU_Q]
     entries, kept, launches = [], None, 0
     for sel in INT8_SELECTORS:
-        t0 = time.perf_counter()
         idx = FlatIndex(IVF_DIM, dtype="int8", selector=sel, capacity=IVF_N, device=cuda)
         idx.add(db)
-        torch.cuda.synchronize()
-        add_s = time.perf_counter() - t0
         before = Q.int8_dots.launches
         ids1 = torch.cat([idx.search(single[i:i + 1], 10)[1] for i in range(len(single))])
         _, ids = idx.search(queries, 10)
@@ -1518,11 +1130,9 @@ def int8_flat_run(torch, Q, db, queries, truth, x_sq_max: float):
         err, mism = int8_same_topk(torch, qh, x_sq_max, kv, ki, *cpu.search(qh.cpu(), 10),
                                    RTOL["float32"])
         entries.append({
-            "selector": sel, "add_s": add_s, "bytes_per_row": int8_bytes_per_row(idx),
+            "selector": sel, "bytes_per_row": int8_bytes_per_row(idx),
             "recall@10_q1": recall_at(ids1, truth[:len(single)]),
             "recall@10_q1024": recall_at(ids, truth),
-            "search_ms_q1": cuda_ms(torch, lambda: idx.search(single[:1], 10)),
-            "search_ms_q1024": cuda_ms(torch, lambda: idx.search(queries, 10), reps=3, warm=1),
             "max_abs_err_vs_cpu": err, "id_mismatch_vs_cpu": mism})
         del cpu
         if sel == "rerank":
@@ -1536,21 +1146,17 @@ def int8_flat_run(torch, Q, db, queries, truth, x_sq_max: float):
 def int8_ivf_run(torch, db, queries, truth, coarse):
     """bench.py's 1M rows in ``IVFFlatIndex(384, nlist=8192, dtype="int8",
     train_iters=10, balance="reassign")`` with its bf16 shadow, on the bf16
-    build's coarse quantizer: build time and stats, recall@10 and host-clock
-    search times at Q 1 and 1,024 at the default nprobe and 16, and the
-    index held to the same state on the CPU."""
+    build's coarse quantizer: recall@10 at Q 1 and 1,024 at the default
+    nprobe and 16, and the index held to the same state on the CPU."""
     from rag_faiss_embedding_tpu_torch.benchmarks.fused_proto import recall_at
     from rag_faiss_embedding_tpu_torch.index import IVFFlatIndex
 
     cuda = torch.device("cuda")
     single = queries[:64]
-    t0 = time.perf_counter()
     idx = IVFFlatIndex(IVF_DIM, nlist=IVF_NLIST, dtype="int8", train_iters=10,
                        balance="reassign", device=cuda)
     idx.centroids, idx.is_trained = coarse.centroids, True
     idx.build(db)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     if idx._sorted_shadow is None or idx.resolved_dispatch(IVF_Q)["backend"] != "xla":
         raise AssertionError("the int8 IVF index must rerank on the plain chunk body")
     routes = []
@@ -1560,9 +1166,7 @@ def int8_ivf_run(torch, db, queries, truth, coarse):
         _, ids = idx.search(queries, 10, nprobe=nprobe)
         r = {"nprobe": nprobe or idx.nprobe,
              "recall@10_q1": recall_at(ids1, truth[:len(single)]),
-             "recall@10_q1024": recall_at(ids, truth),
-             "search_ms_q1": host_ms(torch, lambda: idx.search(single[:1], 10, nprobe=nprobe), 10),
-             "search_ms_q1024": host_ms(torch, lambda: idx.search(queries, 10, nprobe=nprobe), 3)}
+             "recall@10_q1024": recall_at(ids, truth)}
         if min(r["recall@10_q1"], r["recall@10_q1024"]) < RECALL_MIN:
             raise AssertionError(f"int8 IVF recall@10 below {RECALL_MIN}: {r}")
         routes.append(r)
@@ -1573,12 +1177,9 @@ def int8_ivf_run(torch, db, queries, truth, coarse):
     err, mism = int8_same_topk(torch, qh, float(idx._sorted_sq.max()), kv, ki, pv, pi,
                                RTOL["float32"])
     del cpu
-    out = {"nlist": idx.nlist, "build_s": build_s,
-           "build_stats": {k: v for k, v in idx.build_stats.items() if k != "train"},
-           "window": idx._window, "spill_rows": idx._n_spill,
+    out = {"nlist": idx.nlist, "window": idx._window, "spill_rows": idx._n_spill,
            "resolved_dispatch_q1024": idx.resolved_dispatch(IVF_Q), "routes": routes,
-           "max_abs_err_vs_cpu": err, "id_mismatch_vs_cpu": mism,
-           "search_profile_q1024": search_profile(torch, idx, queries, 2)}
+           "max_abs_err_vs_cpu": err, "id_mismatch_vs_cpu": mism}
     del idx
     torch.cuda.empty_cache()
     return out
@@ -1588,8 +1189,8 @@ def int8_phase(torch, F, coarse):
     """The int8 tier at bench.py's IVF shape (phase 6's rows and queries,
     made again from the seed): the exact float32 top-10 from a float
     "approx" search (which must launch K1), the int8 flat selectors, the
-    int8 product against its plain version at the path's shapes, a profile
-    of the rerank index's searches, and the int8 IVF index."""
+    int8 product against its plain version at the path's shapes, and the
+    int8 IVF index."""
     from rag_faiss_embedding_tpu_torch.index import FlatIndex
     from rag_faiss_embedding_tpu_torch.ops import quantize as Q
 
@@ -1620,17 +1221,15 @@ def int8_phase(torch, F, coarse):
         a, b = Q._query_blocks(nq, chunk.shape[0])[0]
         q_i8, _ = Q.quantize_rows(queries[a:b])
         mm_cases.append(int_mm_case(torch, Q, q_i8, chunk))
-    profiles = {f"Q={q.shape[0]}": search_profile(torch, rerank_idx, q, reps)
-                for q, reps in ((queries[:1], 8), (queries, 2))}
     del rerank_idx, chunk
     torch.cuda.empty_cache()
     ivf = int8_ivf_run(torch, db, queries, truth, coarse)
     return {"phase": "int8", "N": IVF_N, "D": IVF_DIM, "k": 10,
             "k1_launches_approx_f32": k1_launches, "int8_dots_launches": launches,
-            "flat": flats, "int_mm_cases": mm_cases, "flat_rerank_profile": profiles,
-            "ivf": ivf}
+            "flat": flats, "int_mm_cases": mm_cases, "ivf": ivf}
 
 
+# ----------------------------------------------------------------- phase 13
 def int8_slice_phase(torch):
     """``RAGManager(Config(index_dtype="int8"))``, flat and IVF (nlist 64),
     over the slice's documents and requests, each in a fresh directory:
@@ -1682,7 +1281,7 @@ def int8_slice_phase(torch):
     return out
 
 
-# ------------------------------------------------------------------ phase 15
+# ------------------------------------------------------------------ phase 14
 SERVE_CLIENTS = 64  # client threads
 SERVE_REQUESTS = 256  # concurrent requests to the flat server
 SERVE_SEQUENTIAL = 32
@@ -1690,31 +1289,22 @@ IVF_SERVE_REQUESTS = 64
 
 
 def http_json(port: int, method: str, path: str, body=None, raw=None):
-    """(status, JSON body, ms on the host clock) of one request on its own
-    connection; every response must carry Content-Length and a JSON
-    Content-Type."""
+    """(status, JSON body) of one request on its own connection; every
+    response must carry Content-Length and a JSON Content-Type."""
     import http.client
 
     data = raw if raw is not None else (None if body is None else json.dumps(body))
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
-        t = time.perf_counter()
         conn.request(method, path, body=data, headers={"Content-Type": "application/json"})
         resp = conn.getresponse()
         payload = resp.read()
-        ms = (time.perf_counter() - t) * 1e3
     finally:
         conn.close()
     if not (resp.getheader("Content-Type", "").startswith("application/json")
             and int(resp.getheader("Content-Length", "-1")) == len(payload)):
         raise AssertionError(f"{method} {path}: response without its JSON headers")
-    return resp.status, json.loads(payload), ms
-
-
-def percentiles(ms) -> dict:
-    s = sorted(ms)
-    return {"n": len(s), "p50_ms": s[len(s) // 2],
-            "p99_ms": s[min(len(s) - 1, int(len(s) * 0.99))], "max_ms": s[-1]}
+    return resp.status, json.loads(payload)
 
 
 def batch_sizes(stats: dict) -> dict:
@@ -1740,15 +1330,13 @@ def cpu_copy(torch, manager, engine, backend=None):
 
 
 def record_batches(engine) -> list:
-    """Record every batch the server searches, (texts, k, results, ms on
-    the worker thread), as the engine's search_batch runs them; ``del
-    engine.search_batch`` stops it."""
+    """Record every batch the server searches, (texts, k, results), as the
+    engine's search_batch runs them; ``del engine.search_batch`` stops it."""
     batches, search_batch = [], engine.search_batch
 
     def recorded(texts, k):
-        t = time.perf_counter()
-        out = search_batch(texts, k)  # ends with the hits on the host
-        batches.append((list(texts), k, out, (time.perf_counter() - t) * 1e3))
+        out = search_batch(texts, k)
+        batches.append((list(texts), k, out))
         return out
 
     engine.search_batch = recorded
@@ -1773,7 +1361,7 @@ def check_served(answers, requests, batches, reference) -> dict:
     batches). Each answer is 200, holds its top_k hits, and is its batch's
     list cut to that top_k."""
     served, mismatched, max_err = {}, 0, 0.0
-    for texts, k, results, _ in batches:
+    for texts, k, results in batches:
         atol = serve_tolerance(reference, texts)
         for text, hits, ref in zip(texts, results, reference.search_batch(texts, k)):
             if not same_hits(hits, ref, RTOL["float32"], atol):
@@ -1785,42 +1373,14 @@ def check_served(answers, requests, batches, reference) -> dict:
             max_err = max([max_err] + [abs(a["distance"] - b["distance"])
                                        for a, b in zip(hits, ref)])
             served.setdefault(text, []).append(json.loads(json.dumps(hits)))
-    for (status, body, _), (text, k) in zip(answers, requests):
+    for (status, body), (text, k) in zip(answers, requests):
         hits = body.get("similar_documents") if status == 200 else None
         if hits is None or len(hits) != k:
             raise AssertionError(f"a request for {k} hits got {status}: {str(body)[:200]}")
         if not any(hits == full[:k] for full in served.get(text, [])):
             raise AssertionError("an answer is not its batch's search")
     return {"requests": len(answers), "batches_held": len(batches),
-            "search_batch_ms": [round(b[3], 3) for b in batches][:64],
             "id_lists_differing_at_ties": mismatched, "max_abs_distance_err_vs_cpu": max_err}
-
-
-def batch_stages(engine, texts, k: int = 10, reps: int = 3) -> dict:
-    """Median host-clock ms of a warm search_batch's stages at len(texts)
-    queries: tokenize, embed (ends in a device-to-host copy), index search
-    (so does this), SQLite fetch, and the whole call."""
-    emb, store = engine.embedder, engine.vector_store
-    stages = {"tokenize": [], "embed": [], "vector_store.search": [], "sqlite_fetch": [],
-              "search_batch": []}
-    for _ in range(reps):
-        t = time.perf_counter()
-        emb.tokenizer.encode_batch(texts, emb.max_seq_length)
-        stages["tokenize"].append(time.perf_counter() - t)
-        t = time.perf_counter()
-        vecs = emb.generate_embeddings(texts)
-        stages["embed"].append(time.perf_counter() - t)
-        t = time.perf_counter()
-        _, ids = store.search(vecs, k)
-        stages["vector_store.search"].append(time.perf_counter() - t)
-        t = time.perf_counter()
-        for row in ids:
-            engine.db.get_documents_by_ids(row)
-        stages["sqlite_fetch"].append(time.perf_counter() - t)
-        t = time.perf_counter()
-        engine.search_batch(texts, k)
-        stages["search_batch"].append(time.perf_counter() - t)
-    return {name: statistics.median(v) * 1e3 for name, v in stages.items()}
 
 
 async def serve_flat(torch, F, manager, engine, cfg, docs, texts, pool) -> dict:
@@ -1846,7 +1406,7 @@ async def serve_flat(torch, F, manager, engine, cfg, docs, texts, pool) -> dict:
         probe_launches = F.flat_search.launches - before
         if app.watchdog["status"] != "healthy" or probe_launches != 1:
             raise AssertionError(f"watchdog probe: {app.watchdog}, {probe_launches} launches")
-        status, health, _ = await call("GET", "/health")
+        status, health = await call("GET", "/health")
         if (status, health["status"], health["documents"], health["vectors"]) != (
                 200, "healthy", N_DOCS, N_DOCS):
             raise AssertionError(f"/health answered {status} {health}")
@@ -1855,12 +1415,10 @@ async def serve_flat(torch, F, manager, engine, cfg, docs, texts, pool) -> dict:
         requests = [(t, int(k)) for t, k in zip(texts, rng.integers(1, 11, len(texts)))]
         batches = record_batches(engine)
         F.flat_search.launches = 0  # count the concurrent run's launches only
-        t0 = time.perf_counter()
         answers = await asyncio.gather(*[call("POST", "/search", {
             "text": t, "top_k": k, "generate": False}) for t, k in requests])
-        concurrent_s = time.perf_counter() - t0
         launches = F.flat_search.launches
-        _, stats, _ = await call("GET", "/stats")
+        _, stats = await call("GET", "/stats")
         sizes = batch_sizes(stats)
         if not launches == len(batches) == sum(sizes.values()) or max(sizes) < 2:
             raise AssertionError(f"{launches} K1 launches for batches {sizes}")
@@ -1876,7 +1434,6 @@ async def serve_flat(torch, F, manager, engine, cfg, docs, texts, pool) -> dict:
             raise AssertionError(f"{seq_launches} K1 launches for {len(seq_batches)} "
                                  f"sequential batches")
         del engine.search_batch  # the writes below change the index
-        _, stats, _ = await call("GET", "/stats")  # the loop's view of each batch
 
         where = {"url_prefix": "https://synthetic.example/"}
         before = F.flat_search.launches
@@ -1886,7 +1443,7 @@ async def serve_flat(torch, F, manager, engine, cfg, docs, texts, pool) -> dict:
         if filter_launches != 1 or not all(h["url"].startswith(where["url_prefix"])
                                            for h in filtered[1]["similar_documents"]):
             raise AssertionError(f"the filtered request took {filter_launches} launches")
-        status, answered, _ = await call("POST", "/search", {"text": texts[2], "top_k": 3})
+        status, answered = await call("POST", "/search", {"text": texts[2], "top_k": 3})
         if status != 200 or not answered.get("generated_response"):
             raise AssertionError("no generated_response")
 
@@ -1894,14 +1451,14 @@ async def serve_flat(torch, F, manager, engine, cfg, docs, texts, pool) -> dict:
         words = " ".join(d["content"] for d in docs[:50]).split()
         new = [{"url": f"https://serve.example/{i}", "title": f"served {i}",
                 "content": " ".join(rng.choice(words, size=40))} for i in range(2)]
-        status, added, _ = await call("POST", "/documents", {"documents": new})
+        status, added = await call("POST", "/documents", {"documents": new})
         if status != 200 or added != {"added": 2, "vectors": N_DOCS + 2}:
             raise AssertionError(f"POST /documents answered {status} {added}")
         found = [(await call("POST", "/search", {"text": d["content"], "top_k": 3,
                                                  "generate": False}))[1] for d in new]
         if [f["similar_documents"][0]["url"] for f in found] != [d["url"] for d in new]:
             raise AssertionError("an added document is not its own first hit")
-        status, deleted, _ = await call("DELETE", "/documents",
+        status, deleted = await call("DELETE", "/documents",
                                         {"urls": [d["url"] for d in new]})
         if status != 200 or deleted != {"deleted": 2, "documents": N_DOCS}:
             raise AssertionError(f"DELETE /documents answered {status} {deleted}")
@@ -1919,21 +1476,14 @@ async def serve_flat(torch, F, manager, engine, cfg, docs, texts, pool) -> dict:
     finally:
         await app.stop()
 
-    stages = {n: batch_stages(engine, texts[:n]) for n in (1, SERVE_CLIENTS)}
     held = check_served(answers, requests, concurrent_batches, reference)
     held_seq = check_served(seq_answers, seq_requests, seq_batches, reference)
     ref = reference.search(texts[1], top_k=5, where=where)
     if not same_hits(filtered[1]["similar_documents"], ref, RTOL["float32"],
                      serve_tolerance(reference, texts[1:2])):
         raise AssertionError("the filtered answer differs from the CPU copy's")
-    return {"concurrent": {**percentiles([a[2] for a in answers]), "clients": SERVE_CLIENTS,
-                           "wall_s": concurrent_s,
-                           "requests_per_s": len(answers) / concurrent_s, **held},
-            "sequential": {**percentiles([a[2] for a in seq_answers]), **held_seq},
+    return {"concurrent": {"clients": SERVE_CLIENTS, **held}, "sequential": held_seq,
             "batch_sizes": dict(sorted(sizes.items())), "batches": sum(sizes.values()),
-            "stats_ms": {k: {q[:-1] + "ms": v[q] * 1e3 for q in ("mean_s", "p50_s", "p99_s")}
-                         for k, v in stats.items()},
-            "search_batch_stages_ms": stages,
             "flat_scan_launches": launches, "sequential_launches": seq_launches,
             "probe_launches": probe_launches,
             "filter_launches": filter_launches,
@@ -1967,8 +1517,7 @@ async def serve_ivf(torch, U, manager, engine, cfg, texts, pool) -> dict:
         raise AssertionError("the IVF server did not launch the union scan")
     held = check_served(answers, [(t, 5) for t in texts], batches,
                         cpu_copy(torch, manager, engine, backend="pallas"))
-    return {**percentiles([a[2] for a in answers]), **held,
-            "batch_sizes": dict(sorted(sizes.items())), "union_scan_launches": launches}
+    return {**held, "batch_sizes": dict(sorted(sizes.items())), "union_scan_launches": launches}
 
 
 def start_cli(args, device):
@@ -1976,18 +1525,16 @@ def start_cli(args, device):
     cmd = [sys.executable, "-m", f"rag_faiss_embedding_tpu_torch.cli.{args[0]}", *args[1:]]
     if device != "cuda":
         cmd += ["--device", device]  # a rehearsal on the CPU; the card is the default
-    return time.perf_counter(), subprocess.Popen(
-        cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
 
 
-def finish_cli(started, name: str, times: dict) -> str:
+def finish_cli(proc, name: str) -> str:
     """Wait for a started CLI (300 s at most); its stdout."""
-    t, proc = started
     try:
         out, err = proc.communicate(timeout=300)
     finally:
         proc.kill()  # no-op once it has exited
-    times[name] = time.perf_counter() - t
     if proc.returncode != 0:
         raise AssertionError(f"cli.{name} exited {proc.returncode}: {err[-2000:]}")
     return out
@@ -1999,14 +1546,13 @@ def serve_clis(device: str, workdir: Path) -> dict:
     default device."""
     from rag_faiss_embedding_tpu_torch.store import Database
 
-    base, self_base, times = workdir / "cli", workdir / "self", {}
+    base, self_base = workdir / "cli", workdir / "self"
     package = ROOT / "rag_faiss_embedding_tpu_torch"
-    t = time.perf_counter()
     pipeline = start_cli(["pipeline", "--base-dir", str(base), "--html-root",
                           str(ROOT / "examples" / "corpus")], device)
     selfindex = start_cli(["selfindex", "--base-dir", str(self_base), "--source-dir",
                            str(package)], device)
-    finish_cli(pipeline, "pipeline", times)
+    finish_cli(pipeline, "pipeline")
     entries = json.loads((base / "data" / "documents.json").read_text())
     pages = sorted((ROOT / "examples" / "corpus").glob("*.html"))
     db = Database(base / "data" / "documents.db")
@@ -2016,11 +1562,11 @@ def serve_clis(device: str, workdir: Path) -> dict:
         raise AssertionError(f"pipeline indexed {indexed} of {len(pages)} pages")
     pick = entries[2]
     out = finish_cli(start_cli(["search", "--base-dir", str(base), pick["content"]], device),
-                     "search", times)
+                     "search")
     rows = out[out.index("\n-") + 1:].splitlines()[1:]  # under the table's rule
     if not rows or rows[0].split()[1] != pick["title"]:
         raise AssertionError(f"cli.search did not put {pick['title']} first:\n{out}")
-    finish_cli(selfindex, "selfindex", times)
+    finish_cli(selfindex, "selfindex")
     db = Database(self_base / "data" / "documents.db")
     n_self = db.get_document_count()
     db.close()
@@ -2028,8 +1574,7 @@ def serve_clis(device: str, workdir: Path) -> dict:
     if n_self != n_py:
         raise AssertionError(f"selfindex stored {n_self} documents for {n_py} .py files")
     return {"pipeline_documents": indexed, "search_first_title": pick["title"],
-            "selfindex_documents": n_self, "seconds": times,
-            "wall_s": time.perf_counter() - t}
+            "selfindex_documents": n_self}
 
 
 def serve_phase(torch, F, U, device: str = "cuda") -> dict:
@@ -2044,7 +1589,6 @@ def serve_phase(torch, F, U, device: str = "cuda") -> dict:
 
     import numpy as np
 
-    t0 = time.perf_counter()
     docs = corpus_documents(N_DOCS, SEED)
     _, queries, batch_queries = slice_requests(docs)
     rng = np.random.default_rng(SEED + 16)
@@ -2073,41 +1617,10 @@ def serve_phase(torch, F, U, device: str = "cuda") -> dict:
         for manager, _, _ in managers:
             manager.cleanup()
         out["clis"] = serve_clis(device, Path(workdir))
-    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
-def bf16_encoder_check(torch, embedder, cpu_pipe, texts) -> dict:
-    """The encoder's bf16 compute mode at full width on the card, with the
-    slice's weights: its embeddings of ``texts`` against the float32 CPU
-    pipeline's by cosine (> 0.99, the JAX package's bar), and its device
-    time at 1 / 16 / 32 rows beside the float32 encoder's."""
-    import numpy as np
-
-    from rag_faiss_embedding_tpu_torch.models import EmbeddingPipeline
-    from rag_faiss_embedding_tpu_torch.models import convert
-
-    cfg = dataclasses.replace(embedder.cfg, dtype="bfloat16")
-    pipe = EmbeddingPipeline(
-        params=convert.to_flax_params(embedder.model.state_dict(), embedder.cfg), cfg=cfg,
-        tokenizer=embedder.tokenizer, max_seq_length=embedder.max_seq_length,
-        device=torch.device("cuda"))
-    got, want = pipe.generate_embeddings(texts), cpu_pipe.generate_embeddings(texts)
-    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
-    if not np.isfinite(got).all() or float(cos.min()) <= 0.99:
-        raise AssertionError(f"bf16 encoder cosine to the f32 CPU pipeline {cos.min()}")
-    ids, mask = embedder.tokenizer.encode_batch(texts[:32], embedder.max_seq_length)
-    ids = np.pad(ids, ((0, 32 - len(ids)), (0, 0)), constant_values=embedder.tokenizer.pad_id)
-    mask = np.pad(mask, ((0, 32 - len(mask)), (0, 0)))
-    return {"texts": len(texts), "cosine_min_vs_f32_cpu": float(cos.min()),
-            "seq_bucket": int(ids.shape[1]),
-            "bf16_ms_by_rows": {r: cuda_ms(torch, lambda: pipe._forward(ids[:r], mask[:r]))
-                                for r in (1, 16, 32)},
-            "f32_ms_by_rows": {r: cuda_ms(torch, lambda: embedder._forward(ids[:r], mask[:r]))
-                               for r in (1, 16, 32)}}
-
-
-# ----------------------------------------------------------------- phase 16
+# ------------------------------------------------------------------ phase 8
 # the JAX record's 10M IVF-PQ shape with refine (benchmarks/scale10m.py)
 CHUNKED_N, CHUNKED_CHUNK, CHUNKED_NLIST, CHUNKED_M = 10 * (1 << 20), 1 << 19, 16384, 48
 CHUNKED_NPROBES = (8, 16, 32)
@@ -2250,17 +1763,11 @@ def one_m_builds(torch, U, coarse) -> dict:
         return idx
 
     # spill: the chunked build equals a dense build with the same training
-    t0 = time.perf_counter()
     dense = pinned(IVFFlatIndex(IVF_DIM, balance="spill", **pq_kw), coarse)
     dense.build(db)
-    torch.cuda.synchronize()
-    dense_s = time.perf_counter() - t0
     chunked = pinned(IVFFlatIndex(IVF_DIM, balance="spill", **pq_kw), coarse)
     chunked.pq_codebooks = dense.pq_codebooks
-    t0 = time.perf_counter()
     chunked.build_chunked(src, n=IVF_N, chunk_size=CHUNKED_CHUNK)
-    torch.cuda.synchronize()
-    chunked_s = time.perf_counter() - t0
     if (chunked._window, chunked._n_spill) != (dense._window, dense._n_spill) or \
             not torch.equal(chunked._sorted_ids, dense._sorted_ids):
         raise AssertionError("the chunked spill build's slots differ from the dense build's")
@@ -2268,20 +1775,15 @@ def one_m_builds(torch, U, coarse) -> dict:
     a, b = dense.search(queries, 10, nprobe=16), chunked.search(queries, 10, nprobe=16)
     if not all(torch.equal(x, y) for x, y in zip(a, b)):
         raise AssertionError("the chunked and dense builds search differently")
-    out["spill_vs_dense"] = {"dense_build_s": dense_s, "chunked_build_s": chunked_s,
-                             "window": chunked._window, "spill_rows": chunked._n_spill,
-                             "searches_identical": True, **ties,
-                             "build_stats": chunked.build_stats}
+    out["spill_vs_dense"] = {"window": chunked._window, "spill_rows": chunked._n_spill,
+                             "searches_identical": True, **ties}
     codebooks = dense.pq_codebooks
     del dense, chunked
 
     # reassign at the 100M setting's cap
     ra = pinned(IVFFlatIndex(IVF_DIM, balance="reassign", **pq_kw), coarse)
     ra.pq_codebooks, ra.cap_factor = codebooks, 1.3
-    t0 = time.perf_counter()
     ra.build_chunked(src, n=IVF_N, chunk_size=CHUNKED_CHUNK)
-    torch.cuda.synchronize()
-    ra_s = time.perf_counter() - t0
     cap = ra._reassign_cap(IVF_N / IVF_NLIST)
     built_ids = ra._sorted_ids[ra._sorted_ids >= 0]
     placed = torch.zeros(IVF_N, dtype=torch.bool, device=cuda)
@@ -2297,20 +1799,16 @@ def one_m_builds(torch, U, coarse) -> dict:
         self_hit = float((got[:, 0].long() == pend[:256]).float().mean())
         if self_hit < 1.0:
             raise AssertionError(f"spilled rows found themselves {self_hit}")
-    out["reassign"] = {"build_s": ra_s, "cap_factor": 1.3, "cap": cap, "window": ra._window,
+    out["reassign"] = {"cap_factor": 1.3, "cap": cap, "window": ra._window,
                        "spill_rows": ra._n_spill, "spilled_self_query_top1": self_hit,
                        "recall@10_q1024_nprobe16": recall_at(
-                           ra.search(queries, 10, nprobe=16)[1], truth),
-                       "build_stats": ra.build_stats}
+                           ra.search(queries, 10, nprobe=16)[1], truth)}
     del ra
 
     # dense bf16 storage through the union-scan kernel
     bf = pinned(IVFFlatIndex(IVF_DIM, nlist=IVF_NLIST, dtype="bfloat16", balance="spill",
                              train_iters=10, device=cuda), coarse)
-    t0 = time.perf_counter()
     bf.build_chunked(src, n=IVF_N, chunk_size=CHUNKED_CHUNK)
-    torch.cuda.synchronize()
-    bf_s = time.perf_counter() - t0
     U.union_scan.launches = 0  # the path's launches
     U.union_scan.variant_launches = {1: 0, 2: 0}
     _, ids = bf.search(queries, 10, nprobe=16)
@@ -2325,12 +1823,10 @@ def one_m_builds(torch, U, coarse) -> dict:
                              f"(plain {plain_rec})")
     args, disp = union_args(S, bf, queries, 10, 1, 16)
     err, mism = union_check(torch, U, bf, args, 10)
-    out["bf16"] = {"build_s": bf_s, "window": bf._window, "spill_rows": bf._n_spill,
+    out["bf16"] = {"window": bf._window, "spill_rows": bf._n_spill,
                    "recall@10_q1024_nprobe16": rec, "plain_recall@10": plain_rec,
                    "union_scan_v1_launches": launches, "max_abs_err": err,
-                   "id_mismatch": mism, "ms": cuda_ms(torch, lambda: bf.search(queries, 10,
-                                                                               nprobe=16), 5),
-                   "build_stats": bf.build_stats}
+                   "id_mismatch": mism}
     del bf, db
     torch.cuda.empty_cache()
     return out
@@ -2360,11 +1856,9 @@ def chunked_phase(torch, F, U, PD, coarse) -> dict:
     tracked = PeakBySourceCall(torch, source)
     before = torch.cuda.memory_allocated()
     rss_before = host_rss_bytes()
-    t0 = time.perf_counter()
     tracked.close()  # peak window from here
     idx.build_chunked(tracked, n=CHUNKED_N, chunk_size=CHUNKED_CHUNK)
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     tracked.close()
     n_chunks = -(-CHUNKED_N // CHUNKED_CHUNK)
     stages = ["train"] * n_chunks + ["assign"] * n_chunks + ["pq_train"] + \
@@ -2401,7 +1895,7 @@ def chunked_phase(torch, F, U, PD, coarse) -> dict:
     truth_launches = F.flat_search.launches
 
     single = queries[:64]
-    PD.decode.launches, PD.decode.rows = 0, []  # the searches' launches
+    PD.decode.launches = 0  # the searches' launches
     searches = []
     for nprobe in CHUNKED_NPROBES:
         v, ids = idx.search(queries, 10, nprobe=nprobe)
@@ -2413,14 +1907,11 @@ def chunked_phase(torch, F, U, PD, coarse) -> dict:
                 (ids[:, 0].long() == truth[:, 0]).float().mean()),
             "recall@10_q1": recall_at(ids1, truth[:64]), "recall@1_q1": float(
                 (ids1[:, 0].long() == truth[:64, 0]).float().mean()),
-            "ms_q1": cuda_ms(torch, lambda: idx.search(single[:1], 10, nprobe=nprobe)),
-            "ms_q1024": cuda_ms(torch, lambda: idx.search(queries, 10, nprobe=nprobe), 5, 1),
         })
         if not (bool((ids >= 0).all()) and bool(torch.isfinite(v).all())):
             raise AssertionError(f"a 10M search at nprobe {nprobe} returned missing slots")
     torch.cuda.synchronize()
-    k4_launches, k4_rows = PD.decode.launches, PD.decode.rows[:PD.decode.launches]
-    PD.decode.rows = None
+    k4_launches = PD.decode.launches
     kernel_out = idx.search(queries, 10, nprobe=16)
     idx.backend = "xla"
     plain_out = idx.search(queries, 10, nprobe=16)
@@ -2429,13 +1920,10 @@ def chunked_phase(torch, F, U, PD, coarse) -> dict:
         raise AssertionError("10M: the decode kernel and the plain decode disagree")
     result = {"phase": "chunked", "N": CHUNKED_N, "D": IVF_DIM, "nlist": CHUNKED_NLIST,
               "pq_m": CHUNKED_M, "chunk_size": CHUNKED_CHUNK, "refine_dtype": "bfloat16",
-              "rerank_depth": idx.rerank_depth, "balance": "spill", "build_s": build_s,
-              "build_stats": {k: v for k, v in idx.build_stats.items() if k != "train"},
-              "train_stats": idx.build_stats.get("train"), "window": idx._window,
+              "rerank_depth": idx.rerank_depth, "balance": "spill", "window": idx._window,
               "spill_rows": idx._n_spill, "memory": memory, "searches": searches,
               "kernel_equals_plain_decode_q1024_nprobe16": True,
-              "path_launches": {"flat_scan": truth_launches, "pq_decode": k4_launches},
-              "pq_decode_rows_per_launch": rows_histogram(k4_rows)}
+              "path_launches": {"flat_scan": truth_launches, "pq_decode": k4_launches}}
     del idx, kernel_out, plain_out, truth
     torch.cuda.empty_cache()
     if working > bound:
@@ -2448,8 +1936,7 @@ def chunked_phase(torch, F, U, PD, coarse) -> dict:
         raise AssertionError(f"a kernel was not launched: {result['path_launches']}")
     return result
 
-
-# ----------------------------------------------------------------- phase 17
+# ----------------------------------------------------------------- phase 15
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_LEN, TRAIN_LR, TRAIN_VOCAB = 200, 32, 128, 2e-5, 8192
 CLI_TRAIN_STEPS = 20
 GRAD_FLOOR = 1e-6  # 100 x AdamW's eps
@@ -2519,43 +2006,33 @@ def one_step_card_vs_cpu(torch, T, cfg, params, batch) -> dict:
     out = []
     for dev in (torch.device("cpu"), torch.device("cuda")):
         run, state = T.make_train_step(cfg, learning_rate=TRAIN_LR, params=params, device=dev)
-        t0 = time.perf_counter()
         state, m = run(state, batch)
-        loss = float(m["loss"])
-        out.append((loss, time.perf_counter() - t0, *step_tensors(state)))
-    (l_cpu, s_cpu, w_cpu, m_cpu), (l_card, s_card, w_card, m_card) = out
+        out.append((float(m["loss"]), *step_tensors(state)))
+    (l_cpu, w_cpu, m_cpu), (l_card, w_card, m_card) = out
     held = hold_step(torch, (load_flax_params(params), None), (l_cpu, w_cpu, m_cpu),
                      (l_card, w_card, m_card))
-    return {"loss_card": l_card, "loss_cpu": l_cpu, **held,
-            "step_s_card_first": s_card, "step_s_cpu": s_cpu}
+    return {"loss_card": l_card, "loss_cpu": l_cpu, **held}
 
 
 MESH_SHAPE = {"data": 2, "model": 2}  # on four repeated positions of the one card
-MESH_TIMED_STEPS = 10
 
 
-def timed_steps(torch, run, state, batches) -> tuple:
-    """Steps over ``batches``, each between CUDA events: (state, losses,
-    ms per step)."""
-    losses, events = [], []
+def run_steps(run, state, batches) -> tuple:
+    """Steps over ``batches``: (state, losses)."""
+    losses = []
     for b in batches:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
         state, m = run(state, b)
-        end.record()
-        events.append((start, end))
         losses.append(float(m["loss"]))
-    torch.cuda.synchronize()
-    return state, losses, [s.elapsed_time(e) for s, e in events]
+    return state, losses
 
 
 def mesh_train_phase(torch, T, cfg, params, batches, docs, workdir: Path) -> dict:
     """Data- and tensor-parallel training on a ``MESH_SHAPE`` mesh over
     four repeated positions of the card, from the parameters and batches of
     the one-card step: the first step held to the one-card step on the card
-    by ``hold_step``, the next two's losses within 1e-4 relative, then
-    MESH_TIMED_STEPS more of each, timed by CUDA events; a checkpoint saved
-    from the mesh restored on one card (the state bit for bit) and its next
+    by ``hold_step``, the next two's losses within 1e-4 relative; a
+    checkpoint saved from the mesh restored on one card (the state bit for
+    bit) and its next
     step held to the mesh's next step by ``hold_step``; ``cli.train.train``
     over four repeated positions builds and logs JAX's {data 2, model 2}."""
     import logging
@@ -2570,11 +2047,11 @@ def mesh_train_phase(torch, T, cfg, params, batches, docs, workdir: Path) -> dic
     runs = {}
     for label, where in (("one_card", {"device": cuda}), ("mesh", {"mesh": mesh})):
         run, state = T.make_train_step(cfg, learning_rate=TRAIN_LR, params=params, **where)
-        state, first_loss, first_ms = timed_steps(torch, run, state, batches[:1])
+        state, first_loss = run_steps(run, state, batches[:1])
         after_first = (first_loss[0], *step_tensors(state))
-        state, losses, ms = timed_steps(torch, run, state, batches[1:3])
+        state, losses = run_steps(run, state, batches[1:3])
         runs[label] = {"run": run, "state": state, "after_first": after_first,
-                       "losses": first_loss + losses, "ms": first_ms + ms}
+                       "losses": first_loss + losses}
     one, on_mesh = runs["one_card"], runs["mesh"]
     if not isinstance(on_mesh["state"].params, T.MeshEncoder):
         raise AssertionError("the mesh step did not run on the mesh")
@@ -2600,16 +2077,7 @@ def mesh_train_phase(torch, T, cfg, params, batches, docs, workdir: Path) -> dic
         state, m = run(state, nxt)
         after.append((float(m["loss"]), *step_tensors(state)))
     resumed = hold_step(torch, (w_saved, m_saved), *after)
-    del restored, template
-
-    # steady ms per step, one card and mesh in turns
-    timed = {}
-    for label in ("one_card", "mesh", "mesh", "one_card"):
-        r = runs[label]
-        cycle = [batches[i % len(batches)] for i in range(MESH_TIMED_STEPS // 2)]
-        r["state"], _, ms = timed_steps(torch, r["run"], r["state"], cycle)
-        timed.setdefault(label, []).extend(ms)
-    del runs
+    del restored, template, runs
     torch.cuda.empty_cache()
 
     # cli.train.train over four positions of the card
@@ -2618,25 +2086,19 @@ def mesh_train_phase(torch, T, cfg, params, batches, docs, workdir: Path) -> dic
     handler.emit = records.append
     logger = logging.getLogger("rag_faiss_embedding_tpu_torch.cli.train")
     logger.addHandler(handler)
-    t0 = time.perf_counter()
     try:
         cli_train.train(docs[:512], steps=3, batch_size=TRAIN_BATCH, max_len=TRAIN_LEN,
                         learning_rate=TRAIN_LR, vocab_size=TRAIN_VOCAB, device=[cuda] * 4)
     finally:
         logger.removeHandler(handler)
-    cli_s = time.perf_counter() - t0
     logged = [r.getMessage() for r in records if r.getMessage().startswith("mesh:")]
     if logged != [f"mesh: {MESH_SHAPE}"]:
         raise AssertionError(f"cli.train over four positions logged {logged}")
     return {"shape": MESH_SHAPE, "devices": [str(d) for d in mesh.devices.flat],
             "first_step_vs_one_card": first, "loss_rel_diff_3_steps": rel,
             "losses_mesh": on_mesh["losses"], "losses_one_card": one["losses"],
-            "ms_first_3_mesh": on_mesh["ms"], "ms_first_3_one_card": one["ms"],
-            "ms_per_step_median_mesh": statistics.median(timed["mesh"]),
-            "ms_per_step_median_one_card": statistics.median(timed["one_card"]),
-            "timed_steps_each": len(timed["mesh"]),
             "checkpoint_mesh_to_one_card": {"bit_exact": True, "next_step": resumed},
-            "cli": {"logged": logged[0], "seconds": cli_s, "documents": 512, "steps": 3}}
+            "cli": {"logged": logged[0], "documents": 512, "steps": 3}}
 
 
 def train_phase(torch, F, workdir: Path) -> dict:
@@ -2661,43 +2123,35 @@ def train_phase(torch, F, workdir: Path) -> dict:
     cuda = torch.device("cuda")
     docs = corpus_documents(N_DOCS, SEED)
     pairs = cli_train.make_pairs(docs, np.random.default_rng(SEED))
-    t0 = time.perf_counter()
     tokenizer = WordPieceTokenizer.train([p[0] for p in pairs] + [p[1] for p in pairs],
                                          vocab_size=TRAIN_VOCAB)
-    vocab_s = time.perf_counter() - t0
     cfg = MiniLMConfig(vocab_size=tokenizer.vocab_size)
     first_batches = cli_train.batch_iterator(pairs, tokenizer, TRAIN_BATCH, TRAIN_LEN, SEED)
     batch = next(first_batches)
     step_check = one_step_card_vs_cpu(torch, T, cfg, deterministic_params(cfg), batch)
-    t0 = time.perf_counter()
     mesh_check = mesh_train_phase(torch, T, cfg, deterministic_params(cfg),
                                   [batch] + list(itertools.islice(first_batches, 3)), docs,
                                   workdir)
-    mesh_check["seconds"] = time.perf_counter() - t0
 
-    # cli.train.train at the CLI's defaults, each step timed by CUDA events
-    record = {"events": [], "loss": [], "state": None}
+    # cli.train.train at the CLI's defaults, each step's loss and the last
+    # state recorded
+    record = {"loss": [], "state": None}
     make = T.make_train_step
 
-    def timed_make_train_step(*args, **kwargs):
+    def recording_make_train_step(*args, **kwargs):
         run, state = make(*args, **kwargs)
 
-        def run_timed(state, b):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
+        def run_recorded(state, b):
             state, m = run(state, b)
-            end.record()
-            record["events"].append((start, end))
             record["loss"].append(m["loss"])
             record["state"] = state
             return state, m
 
-        return run_timed, state
+        return run_recorded, state
 
     ckpt_dir, params_out = workdir / "ckpt", workdir / "trained" / "encoder_params.npz"
-    T.make_train_step = timed_make_train_step
+    T.make_train_step = recording_make_train_step
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     try:
         _, tok = cli_train.train(docs, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
                                  max_len=TRAIN_LEN, learning_rate=TRAIN_LR,
@@ -2705,12 +2159,8 @@ def train_phase(torch, F, workdir: Path) -> dict:
                                  params_out=params_out, device=cuda)
     finally:
         T.make_train_step = make
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    step_ms = [s.elapsed_time(e) for s, e in record["events"]]
     losses = [float(x) for x in record["loss"]]
-    ms = statistics.median(step_ms[10:])
     first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() or not last < first:
         raise AssertionError(f"training did not learn: first 20 {first}, last 20 {last}")
@@ -2767,10 +2217,9 @@ def train_phase(torch, F, workdir: Path) -> dict:
     base = workdir / "cli"
     base.mkdir()
     (base / "documents.json").write_text(json.dumps(docs))
-    times = {}
     finish_cli(start_cli(["train", "--base-dir", str(base), "--documents",
                           str(base / "documents.json"), "--steps", str(CLI_TRAIN_STEPS)],
-                         "cuda"), "train", times)
+                         "cuda"), "train")
     cfg_w = Config(base_dir=base)
     F.flat_search.launches = 0  # the served requests' launches
     manager = RAGManager(config=cfg_w, device=cuda)
@@ -2789,23 +2238,19 @@ def train_phase(torch, F, workdir: Path) -> dict:
         raise AssertionError(f"trained manager: {n} documents, {launches} launches")
     self_hits = sum(h[0]["url"] == docs[i]["url"] for h, i in zip(singles, picks))
     manager.cleanup()
-    return {"phase": "train", "encoder": dataclasses.asdict(tcfg), "vocab_train_s": vocab_s,
+    return {"phase": "train", "encoder": dataclasses.asdict(tcfg),
             "one_step_card_vs_cpu": step_check, "mesh": mesh_check,
             "train": {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "max_len": TRAIN_LEN,
-                      "lr": TRAIN_LR, "wall_s": train_s, "ms_per_step_median": ms,
-                      "ms_per_step_first": step_ms[0],
-                      "sequences_per_s": 2 * TRAIN_BATCH / ms * 1e3,
-                      "tokens_per_s": 2 * TRAIN_BATCH * TRAIN_LEN / ms * 1e3,
-                      "peak_device_bytes": peak, "loss_first20_mean": first,
+                      "lr": TRAIN_LR, "peak_device_bytes": peak, "loss_first20_mean": first,
                       "loss_last20_mean": last, "loss_every_10": losses[::10]},
             "resume_bit_exact": exact, "resume_losses": l_restored,
             "rerun_default_max_abs_diff": rerun_diff,
-            "cli": {"seconds": times["train"], "steps": CLI_TRAIN_STEPS, "documents": n,
+            "cli": {"steps": CLI_TRAIN_STEPS, "documents": n,
                     "self_retrieval": f"{self_hits}/8", "flat_scan_launches": launches},
             "path_launches": {"flat_scan": launches}}
 
 
-# ----------------------------------------------------------------- phase 18
+# ------------------------------------------------------------------ phase 9
 # BASELINE.md config #4 (10M x 384 float32 flat, split over devices) and
 # bench.py's 1M IVF shape over the same mesh
 SHARDED_N, SHARDED_SHARDS = 10 * (1 << 20), 4
@@ -2866,13 +2311,9 @@ def sharded_flat_run(torch, F, mesh) -> dict:
     queries = base[torch.randint(0, CHUNKED_CHUNK, (IVF_Q,), generator=g, device=cuda)]
     queries += 0.3 * torch.randn(IVF_Q, IVF_DIM, generator=g, device=cuda)
     del base
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     idx = ShardedFlatIndex(IVF_DIM, mesh, capacity=SHARDED_N)
     for start in range(0, SHARDED_N, CHUNKED_CHUNK):
         idx.add(source(start, min(CHUNKED_CHUNK, SHARDED_N - start)))
-    torch.cuda.synchronize()
-    add_s = time.perf_counter() - t0
     per = idx._capacity // idx.n_dev
     x_sq_max = max(float(s.max()) for s in idx._sq)
 
@@ -2914,27 +2355,17 @@ def sharded_flat_run(torch, F, mesh) -> dict:
             if dead is not None and bool(dead[ki.long()].any()):
                 raise AssertionError(f"{case}: a removed or filtered row came back")
             cases.append({"case": case, "Q": nq, "k1_launches": launches,
-                          "max_abs_err_vs_truth": err, "id_mismatch_vs_truth": mism,
-                          "ms": cuda_ms(torch, lambda: idx.search(queries[:nq], 10, **kw),
-                                        5 if nq > 1 else 10)})
+                          "max_abs_err_vs_truth": err, "id_mismatch_vs_truth": mism})
     path_launches = sum(c["k1_launches"] for c in cases)
     # K1 against its plain version at a shard's shape
     shard = {}
     for nq in (1, IVF_Q):
-        q = queries[:nq]
-        err, mism, _ = check_scan(torch, F, q, idx._buf[0], idx._sq[0], 10, "L2")
-        shard[f"Q={nq}"] = {
-            "N": per, "D": IVF_DIM, "k": 10, "max_abs_err": err, "id_mismatch": mism,
-            "ms": cuda_ms(torch, lambda: F.flat_search(q, idx._buf[0], 10, db_sq=idx._sq[0])),
-            "plain_ms": cuda_ms(torch, lambda: F.flat_search_reference(
-                q, idx._buf[0], 10, db_sq=idx._sq[0]), 3, 1)}
-        shard[f"Q={nq}"].update(achieved(flat_work(nq, per, IVF_DIM, 10), shard[f"Q={nq}"]["ms"]))
-    profile = search_profile(torch, idx, queries[:1], 8)
+        err, mism = check_scan(torch, F, queries[:nq], idx._buf[0], idx._sq[0], 10, "L2")
+        shard[f"Q={nq}"] = {"N": per, "D": IVF_DIM, "k": 10, "max_abs_err": err,
+                            "id_mismatch": mism}
     out = {"N": SHARDED_N, "D": IVF_DIM, "dtype": "float32", "shards": idx.n_dev,
-           "rows_per_shard": per, "add_s": add_s,
-           "shard_bytes": shard_bytes(idx._buf, idx._sq),
-           "cases": cases, "path_launches": path_launches,
-           "shard_kernel_times": shard, "search_profile_q1": profile,
+           "rows_per_shard": per, "shard_bytes": shard_bytes(idx._buf, idx._sq),
+           "cases": cases, "path_launches": path_launches, "shard_kernel_cases": shard,
            "max_abs_err": max(v["max_abs_err"] for v in shard.values())}
     out["total_bytes"] = sum(out["shard_bytes"])
     del idx, queries, keep, gone
@@ -2943,9 +2374,8 @@ def sharded_flat_run(torch, F, mesh) -> dict:
 
 
 def recall_rows(torch, idx, queries, truth, nprobes, kernels=()):
-    """recall@10 at Q 1 (64 single queries) and Q 1,024 at each nprobe, and
-    CUDA-event search ms; with the launch count of each wrapper in
-    ``kernels`` taken after the recall searches (before the timed ones)."""
+    """recall@10 at Q 1 (64 single queries) and Q 1,024 at each nprobe, with
+    the launch count of each wrapper in ``kernels`` after those searches."""
     from rag_faiss_embedding_tpu_torch.benchmarks.fused_proto import recall_at
 
     single = queries[:64]
@@ -2957,12 +2387,7 @@ def recall_rows(torch, idx, queries, truth, nprobes, kernels=()):
         rows.append({"nprobe": nprobe, "recall@10_q1": recall_at(ids1, truth[:64]),
                      "recall@10_q1024": recall_at(ids, truth)})
     torch.cuda.synchronize()
-    launches = [k.launches for k in kernels]
-    for r in rows:
-        nprobe = r["nprobe"]
-        r["ms_q1"] = cuda_ms(torch, lambda: idx.search(single[:1], 10, nprobe=nprobe))
-        r["ms_q1024"] = cuda_ms(torch, lambda: idx.search(queries, 10, nprobe=nprobe), 5, 1)
-    return rows, launches
+    return rows, [k.launches for k in kernels]
 
 
 def shard_union_check(torch, S, U, idx, j: int, q, nprobe: int) -> dict:
@@ -2984,9 +2409,7 @@ def shard_union_check(torch, S, U, idx, j: int, q, nprobe: int) -> dict:
     err, mism = union_check(torch, U, shard, args, 10)
     return {"shard": j, "Q": q.shape[0], "nprobe": nprobe, "chunks": args["qs"].shape[0],
             "qc": args["qs"].shape[1], "U": args["u_all"].shape[1], "window": idx._window,
-            "max_abs_err": err, "id_mismatch": mism, **union_work(torch, U, args, q.shape[0]),
-            "ms": cuda_ms(torch, lambda: U.union_scan(**args)),
-            "plain_ms": cuda_ms(torch, lambda: U.union_scan_reference(**args))}
+            "max_abs_err": err, "id_mismatch": mism}
 
 
 def sharded_ivf_run(torch, F, U, PD, mesh, coarse, workdir: Path) -> dict:
@@ -3010,19 +2433,14 @@ def sharded_ivf_run(torch, F, U, PD, mesh, coarse, workdir: Path) -> dict:
     keep_bf16 = None
     for dtype in ("bfloat16", "int8", "pq"):
         kw = {"pq_m": SHARDED_PQ_M} if dtype == "pq" else {"dtype": dtype}
-        t0 = time.perf_counter()
         idx = ShardedIVFIndex(IVF_DIM, mesh, nlist=IVF_NLIST, train_iters=10, **kw)
         idx.centroids = coarse.clone()
         idx.build(db)
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
         U.union_scan.launches = PD.decode.launches = 0  # this index's searches
-        PD.decode.rows = []
         rows, (k2, k4) = recall_rows(torch, idx, queries, truth, SHARDED_NPROBES,
                                      (U.union_scan, PD.decode))
-        k4_rows, PD.decode.rows = PD.decode.rows[:k4], None
         n_search = len(SHARDED_NPROBES) * (64 + 1)
-        res = {"build_s": build_s, "window": idx._window,
+        res = {"window": idx._window,
                "spill_rows": sum(idx._spill[3]) if idx._spill is not None else 0,
                "shard_bytes": shard_bytes(idx._vecs, idx._sq, idx._ids,
                                           idx._scales or [None] * idx.n_dev),
@@ -3033,7 +2451,6 @@ def sharded_ivf_run(torch, F, U, PD, mesh, coarse, workdir: Path) -> dict:
                 raise AssertionError(f"K4 launched {k4} times for {n_search} searches over "
                                      f"{idx.n_dev} shards")
             launches["pq_decode"] = k4
-            out["pq_decode_rows_per_launch"] = rows_histogram(k4_rows)
             kern = idx.search(queries, 10, nprobe=8)
             idx.backend = "xla"
             plain = idx.search(queries, 10, nprobe=8)
@@ -3049,13 +2466,9 @@ def sharded_ivf_run(torch, F, U, PD, mesh, coarse, workdir: Path) -> dict:
             codes = idx._vecs[0].view(-1, idx._window, SHARDED_PQ_M)[u_all[0].long()]
             cb = idx._pq_operands()[0][0]
             codes = codes.reshape(-1, SHARDED_PQ_M)
-            err, ms, plain_ms = decode_check(torch, PD, cb, codes)
             res["shard_decode"] = {"rows": codes.shape[0], "M": SHARDED_PQ_M,
                                    "dtype": str(cb.dtype).removeprefix("torch."),
-                                   "max_abs_err": err, "ms": ms,
-                                   "device_ms": device_ms(torch, lambda: PD.decode(cb, codes)),
-                                   "plain_ms": plain_ms,
-                                   **decode_library(torch, PD, cb, codes)}
+                                   "max_abs_err": decode_check(torch, PD, cb, codes)}
         one = IVFFlatIndex(IVF_DIM, nlist=IVF_NLIST, train_iters=10, rerank=False, device=cuda,
                            **kw)
         one.centroids, one.is_trained = coarse.clone(), True
@@ -3097,8 +2510,6 @@ def sharded_ivf_run(torch, F, U, PD, mesh, coarse, workdir: Path) -> dict:
             res["shard_kernel_cases"] = [shard_union_check(torch, S, U, idx, j, queries[:nq], p)
                                          for j in (0, idx.n_dev - 1) for nq in (1, IVF_Q)
                                          for p in SHARDED_NPROBES[:1]]
-            res["search_profile"] = {f"Q={q.shape[0]}": search_profile(torch, idx, q, reps)
-                                     for q, reps in ((queries[:1], 8), (queries, 3))}
             keep_bf16 = idx
         else:
             del idx
@@ -3124,9 +2535,7 @@ def sharded_reload(torch, idx, mesh, queries, db, x_sq_max: float, workdir: Path
     path = workdir / "sharded_ivf.idx"
     store = VectorStore(dimension=IVF_DIM, index_path=path, index=idx, device=cuda)
     store.doc_ids = list(range(idx.ntotal))
-    t0 = time.perf_counter()
     store.save_index()
-    save_s = time.perf_counter() - t0
     before = idx.search(queries, 10, nprobe=8)
 
     def no_build(*a, **k):
@@ -3134,19 +2543,14 @@ def sharded_reload(torch, idx, mesh, queries, db, x_sq_max: float, workdir: Path
 
     built, ShardedIVFIndex.build = ShardedIVFIndex.build, no_build
     try:
-        t0 = time.perf_counter()
         same = VectorStore(index_path=path, mesh=mesh, device=cuda)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
     finally:
         ShardedIVFIndex.build = built
     after = same.index.search(queries, 10, nprobe=8)
     if not all(torch.equal(a, b) for a, b in zip(before, after)):
         raise AssertionError("a reload onto the same mesh searches differently")
     del same
-    t0 = time.perf_counter()
     default = VectorStore(index_path=path, device=cuda)  # every visible card
-    restripe_s = time.perf_counter() - t0
     other = default.index
     kernel_route = other.search(queries, 10, nprobe=8)
     for i in (idx, other):
@@ -3160,9 +2564,8 @@ def sharded_reload(torch, idx, mesh, queries, db, x_sq_max: float, workdir: Path
     # bf16 storage, held as K2 is held to its plain version
     route_err, route_differ = held_to_truth(torch, queries, lambda ids: db[ids], x_sq_max,
                                             *kernel_route, *before, RTOL["bfloat16"])
-    out = {"file_bytes": path.stat().st_size, "save_s": save_s, "load_same_mesh_s": load_s,
-           "same_mesh_bit_exact": True, "default_mesh_shards": other.n_dev,
-           "default_mesh_window": other._window, "load_default_mesh_s": restripe_s,
+    out = {"file_bytes": path.stat().st_size, "same_mesh_bit_exact": True,
+           "default_mesh_shards": other.n_dev, "default_mesh_window": other._window,
            "default_mesh_plain_route_vs_saved": {"max_abs_err": err, "id_mismatch": mism},
            "default_mesh_kernel_route_vs_saved": {"max_abs_err": route_err,
                                                   "id_mismatch": route_differ}}
@@ -3267,15 +2670,9 @@ def sharded_phase(torch, F, U, PD, coarse, workdir: Path) -> dict:
     mesh = sharded_mesh(torch)
     print(f"sharded mesh: {mesh} over {torch.cuda.device_count()} visible device(s)",
           flush=True)
-    t0 = time.perf_counter()
     flat = sharded_flat_run(torch, F, mesh)
-    flat["run_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     ivf = sharded_ivf_run(torch, F, U, PD, mesh, coarse, workdir)
-    ivf["run_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     sl = sharded_slice_run(torch, U, mesh, workdir)
-    sl["run_s"] = time.perf_counter() - t0
     return {"phase": "sharded", "mesh": mesh.shape,
             "mesh_devices": [str(d) for d in mesh.devices.flat],
             "device_count": torch.cuda.device_count(), "flat": flat, "ivf": ivf, "slice": sl,
@@ -3285,16 +2682,7 @@ def sharded_phase(torch, F, U, PD, coarse, workdir: Path) -> dict:
                               "pq_decode": ivf["path_launches"]["pq_decode"]}}
 
 
-# ----------------------------------------------------------------- phase 10
-def bound(bytes_moved: float, flops: float, dtype: str):
-    """The least time the card could take for the work, in ms, and what
-    bounds it: bytes over HBM_BYTES_PER_S or operations over the peak rate
-    of the unit the exact result needs (PEAK_FLOPS)."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
+# ------------------------------------------------------------------ phase 5
 def block_topk_check(torch, FP, args, kp: int):
     """K5 against its plain version on the same card tensors; returns
     (max |score| difference over live slots, ids that differ). The tensor
@@ -3429,10 +2817,6 @@ def fused_proto_phase(torch, idx, queries, truth):
                   "id_mismatch": mism})
     del sparse, dup
     torch.cuda.empty_cache()
-
-    chunks, qc, _ = args["qs"].shape
-    work = scan_work(torch, args["qs"], args["u_all"], args["ids2"], chunks * qc,
-                     chunks * (BF.UCAP // BF.BB) * qc * BF.KP * 8)
     idx.backend, idx.pallas_variant = "auto", 1
     return {
         "phase": "fused_proto", "N": IVF_N, "D": IVF_DIM, "nlist": idx.nlist,
@@ -3443,16 +2827,10 @@ def fused_proto_phase(torch, idx, queries, truth):
         "kernel_cases": cases, "max_abs_err": max_err, "rtol": RTOL_EXACT_PRODUCTS,
         "atol": RTOL_EXACT_PRODUCTS * float(
             (args["qs"].double() ** 2).sum(-1).max() + args["sq2"][args["ids2"] >= 0].max()),
-        **work, **work_bound(work),
-        "ms": cuda_ms(torch, lambda: FP.block_topk(**args, kp=BF.KP)),
-        "plain_ms": cuda_ms(torch, lambda: FP.block_topk_reference(**args, kp=BF.KP), 3, 1),
-        "search_ms": cuda_ms(torch, lambda: BF.search(queries, idx)),
-        "plain_search_ms": cuda_ms(
-            torch, lambda: BF.search(queries, idx, cell_topk=FP.block_topk_reference), 3, 1),
-        "ivf_search_k2_ms": cuda_ms(torch, lambda: idx.search(queries, 10)),
     }
 
 
+# ----------------------------------------------------------------- phase 16
 def probe_check(torch, KP, variant: str, inputs: dict, kw: dict):
     """One K6 variant against its plain version on the same card tensors;
     returns (kernel bins, max |value| difference, bins that differ). The
@@ -3506,8 +2884,7 @@ def probe_check(torch, KP, variant: str, inputs: dict, kw: dict):
 
 
 def kernel_probe_phase(torch):
-    """``benchmarks.kernel_probe.run`` at the script's shape (every variant
-    timed on the same synthetic blocks), then each variant against its
+    """At ``benchmarks.kernel_probe``'s shape: each variant against its
     plain version (``probe_check``), ``chain`` against ``temps`` bit for
     bit, and a crafted negative-subnormal score that ``temps_f32`` meets as
     a NaN."""
@@ -3515,23 +2892,18 @@ def kernel_probe_phase(torch):
     from rag_faiss_embedding_tpu_torch.ops import kernel_probe as KP
 
     inputs = BK.make_inputs(device=torch.device("cuda"), seed=SEED)
-    KP.probe.launches = 0  # count the path's launches only
+    KP.probe.launches = 0  # count the checks' launches only
     KP.probe.variant_launches = dict.fromkeys(KP.VARIANTS, 0)
-    rows = BK.run(inputs)
-    torch.cuda.synchronize()
-    launches = dict(KP.probe.variant_launches)
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a probe variant was never launched: {launches}")
-
     kw = dict(bb=BK.BB, cap=BK.CAP)
-    outs, plain_ms, max_err, mismatch = {}, {}, 0.0, {}
+    outs, max_err, mismatch = {}, 0.0, {}
     for variant in KP.VARIANTS:
         outs[variant], err, mismatch[variant] = probe_check(torch, KP, variant, inputs, kw)
         max_err = max(max_err, err)
-        plain_ms[variant] = cuda_ms(
-            torch, lambda: KP.probe_reference(variant, **inputs, **kw), 3, 1)
     if not torch.equal(outs["chain"], outs["temps"]):
         raise AssertionError("probe chain and temps differ")
+    launches = dict(KP.probe.variant_launches)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a probe variant was never launched: {launches}")
 
     # a zero query row against a norm of 1e-39: the score -1e-39 is a
     # negative subnormal, its packed int a NaN as a float
@@ -3549,8 +2921,6 @@ def kernel_probe_phase(torch):
                 raise AssertionError("temps_f32 lost the subnormal score's NaN")
     del crafted
 
-    work = scan_work(torch, inputs["qs"], inputs["u_all"], inputs["aux3"][:, 1],
-                     BK.CHUNKS * BK.QC, outs["chain"].numel() * 4)
     init_share = float((outs["temps_f32"] == outs["chain"]).float().mean())
     blocks = inputs["codes3"][torch.unique(inputs["u_all"]).long()].double()
     atol = RTOL_EXACT_PRODUCTS * float((inputs["qs"].double() ** 2).sum(-1).max()
@@ -3559,53 +2929,12 @@ def kernel_probe_phase(torch):
     return {
         "phase": "kernel_probe", "nlist": BK.NLIST, "window": BK.WINDOW, "D": BK.DIM,
         "qc": BK.QC, "U": BK.U, "bb": BK.BB, "cap": BK.CAP, "chunks": BK.CHUNKS,
-        "reps": BK.REPS, "path_launches": launches, **work, **work_bound(work),
+        "path_launches": launches,
         "tensor_cores": KP.uses_tensor_cores(torch.cuda.current_device(), BK.DIM, BK.CAP),
         "max_abs_err": max_err, "rtol": RTOL_EXACT_PRODUCTS, "atol": atol,
         "bins_differing_from_plain": mismatch,
         "temps_f32_bins_equal_to_chain": init_share,
-        "variants": {r["variant"]: {"ms": r["ms_per_batch"], "plain_ms": plain_ms[r["variant"]]}
-                     for r in rows},
     }
-
-
-def work_bound(work: dict) -> dict:
-    """``bound`` of a ``scan_work`` / ``flat_work`` dict, as its keys."""
-    return dict(zip(("bound_ms", "bound_by"),
-                    bound(work["bytes"], work["flops"], work["dtype"])))
-
-
-def achieved(work: dict, ms: float) -> dict:
-    """``work_bound`` of a kernel call that took ``ms``, with its achieved
-    rate (TFLOP/s of the operations ``work`` counts) and its share of the
-    bound (bound_ms / ms)."""
-    b = work_bound(work)
-    return {**b, "tflops": work["flops"] / ms / 1e9, "bound_share": b["bound_ms"] / ms}
-
-
-def bounds_phase(kernel_cases, ivf, pq) -> dict:
-    """Bounds at the 1M shapes of PERF.md's kernel table, beside the times
-    the earlier phases took there: K1 over 1,048,576 x 384 float32 at Q = 1
-    and 1,024, K2 / K3 at the IVF phase's Q = 1,024 default dispatch, and K4
-    decoding 1,048,576 rows of M 48 codes into bf16 (with its one-call
-    library equivalent, ``F.embedding`` over the flattened codebook)."""
-    out = {}
-    for row in kernel_cases:
-        case = dict(zip(CASE_COLUMNS, row))
-        if case["case"] == "1M x 384":
-            work = flat_work(case["Q"], case["N"], case["D"], case["k"])
-            out[f"flat_scan Q={case['Q']}"] = dict(achieved(work, case["ms"]), ms=case["ms"],
-                                                   plain_ms=case["plain_ms"])
-    for c in ivf["kernel_cases"]:
-        if c["Q"] == IVF_Q and c["nprobe"] == ivf["resolved_dispatch_q1024"]["nprobe"]:
-            out[f"union_scan v{c['variant']} Q={IVF_Q}"] = dict(
-                achieved(c, c["ms"]), ms=c["ms"], plain_ms=c["plain_ms"])
-    lib = pq["decode_1M_M48_bf16"]
-    out["pq_decode 1M M=48 bf16"] = dict(
-        achieved({"bytes": lib["bytes"], "flops": 0, "dtype": "bfloat16"}, lib["ms"]),
-        ms=lib["ms"], plain_ms=lib["plain_ms"], library_ms=lib["library_ms"])
-    return {"phase": "bounds", "hbm_bytes_per_s": HBM_BYTES_PER_S, "peak_flops": PEAK_FLOPS,
-            "kernels": out}
 
 
 def main() -> int:
@@ -3633,7 +2962,6 @@ def main() -> int:
     from rag_faiss_embedding_tpu_torch.ops import pq_decode as PD
     from rag_faiss_embedding_tpu_torch.ops import union_scan as U
 
-    t0 = time.perf_counter()
     names = ("flat_scan", "union_scan", "pq_decode", "fused_proto", "kernel_probe")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:  # one nvcc each
         libs = dict(zip(names, pool.map(_build.build, names)))
@@ -3641,21 +2969,18 @@ def main() -> int:
         mod.load()
     emit({"phase": "build", "sources": [KERNEL_SOURCE, UNION_SOURCE, PQ_SOURCE, FP_SOURCE,
                                         KP_SOURCE],
-          "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
-          "nvcc_s": dict(_build.build.seconds),
-          "build_and_load_s": time.perf_counter() - t0})
+          "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
 
-    cases, max_err, paths = kernel_phase(torch, F)
+    paths, max_err = kernel_phase(torch, F)
     emit({"phase": "kernel", "kernel": "flat_scan", "rtol": RTOL,
-          "atol": "rtol x (max ||q||^2 + max ||x||^2)", "columns": CASE_COLUMNS,
-          "cases": cases, "paths_1M_x_384_ms": paths, "tiled_min_q": F.TILED_MIN_Q})
+          "atol": "rtol x (max ||q||^2 + max ||x||^2)", "paths_1M_x_384": paths,
+          "tiled_min_q": F.TILED_MIN_Q})
 
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir:
-        trace, sl = slice_phase(torch, F, Path(workdir))
+        sl = slice_phase(torch, F, Path(workdir))
     emit(sl)
-    emit(trace)
     built = ivf_build(torch)
-    fp = fused_proto_phase(torch, built[0], built[2], built[3])  # on the untouched index
+    fp = fused_proto_phase(torch, *built)  # on the untouched index
     emit(fp)
     ivf, union_err = ivf_kernel_phase(torch, *built)
     emit(ivf)
@@ -3670,15 +2995,12 @@ def main() -> int:
         sharded = sharded_phase(torch, F, U, PD, coarse, Path(workdir))
     emit(sharded)
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as workdir:
-        ivf_trace, ivf_sl = ivf_slice_phase(torch, Path(workdir))
+        ivf_sl = ivf_slice_phase(torch, Path(workdir))
     emit(ivf_sl)
-    emit(ivf_trace)
     pq, pq_err = pq_kernel_phase(torch)
     emit(pq)
-    pq_traces, pq_sl = pq_slice_phase(torch)
+    pq_sl = pq_slice_phase(torch)
     emit(pq_sl)
-    for trace in pq_traces:
-        emit(trace)
     emit(int8_slice_phase(torch))
     serve = serve_phase(torch, F, U)
     emit(serve)
@@ -3687,16 +3009,10 @@ def main() -> int:
     emit(train)
     kp = kernel_probe_phase(torch)
     emit(kp)
-    emit(bounds_phase(cases, ivf, pq))
 
     loaded = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES]
     if loaded:
         raise AssertionError(f"the port pulled in JAX modules: {loaded}")
-    flat_q1 = sl["main_path_kernel_times"]["Q=1"]
-    v1 = ivf_sl["main_path_kernel_times"]["Q=1"]
-    v2 = ivf["kernel_cases"][1]
-    shard_k4 = sharded["ivf"]["pq"]["shard_decode"]
-    chain = kp["variants"]["chain"]
     flat_paths = {"slice": sl["flat_scan_launches"],
                   "serve": serve["flat"]["flat_scan_launches"]
                   + serve["flat"]["sequential_launches"],
@@ -3710,18 +3026,12 @@ def main() -> int:
     pq_paths = {"pq_slice": pq_sl["pq_decode_launches"],
                 "chunked": chunked["path_launches"]["pq_decode"],
                 "sharded": sharded["path_launches"]["pq_decode"]}
-    pq_rows = {"pq_slice": pq_sl["pq_decode_rows_per_launch"],
-               "chunked": chunked["pq_decode_rows_per_launch"],
-               "sharded": sharded["ivf"]["pq_decode_rows_per_launch"]}
     kernels = [{
         "name": "flat_scan", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": sum(flat_paths.values()),
         "paths": flat_paths,
         "max_abs_err": max(max_err, sharded["flat"]["max_abs_err"],
-                           *(v["max_abs_err"] for v in sl["main_path_kernel_times"].values())),
-        "ms": flat_q1["ms"], "plain_ms": flat_q1["plain_ms"],
-        **achieved(flat_work(1, flat_q1["N"], flat_q1["D"], flat_q1["k"]), flat_q1["ms"]),
-        "library_ms": None,
+                           *(v["max_abs_err"] for v in sl["main_path_kernel_cases"].values())),
     }, {
         "name": "union_scan v1", "route": "cuda", "source": UNION_SOURCE,
         "replaces": UNION_REPLACES[1], "launches": sum(v1_paths.values()),
@@ -3729,40 +3039,23 @@ def main() -> int:
         "max_abs_err": max(union_err[1], ivf_sl["max_abs_err"],
                            *(c["max_abs_err"] for c in sharded["ivf"]["bfloat16"][
                                "shard_kernel_cases"])),
-        "ms": v1["ms"], "plain_ms": v1["plain_ms"],
-        **achieved(v1, v1["ms"]),
-        "library_ms": None,
     }, {
         "name": "union_scan v2", "route": "cuda", "source": UNION_SOURCE,
         "replaces": UNION_REPLACES[2], "launches": ivf["path_launches"][2],
-        "max_abs_err": union_err[2], "ms": v2["ms"], "plain_ms": v2["plain_ms"],
-        **achieved(v2, v2["ms"]),
-        "library_ms": None,
+        "max_abs_err": union_err[2],
     }, {
         "name": "pq_decode", "route": "cuda", "source": PQ_SOURCE,
         "replaces": PQ_REPLACES, "launches": sum(pq_paths.values()), "paths": pq_paths,
-        "rows_per_launch": pq_rows,
-        "max_abs_err": max(pq_err, shard_k4["max_abs_err"],
+        "max_abs_err": max(pq_err, sharded["ivf"]["pq"]["shard_decode"]["max_abs_err"],
                            *(pq_sl[k]["max_abs_err"] for k in ("pq", "ivf_pq"))),
-        # at a shard's union of the sharded IVF-PQ, the rows most launches get
-        "shape": f"{shard_k4['rows']} x M {shard_k4['M']} {shard_k4['dtype']}",
-        "ms": shard_k4["ms"], "device_ms": shard_k4["device_ms"],
-        "plain_ms": shard_k4["plain_ms"],
-        **achieved({"bytes": shard_k4["bytes"], "flops": 0, "dtype": shard_k4["dtype"]},
-                   shard_k4["ms"]),
-        "library_ms": shard_k4["library_ms"],
     }, {
         "name": "fused_proto", "route": "cuda", "source": FP_SOURCE,
         "replaces": FP_REPLACES, "launches": fp["path_launches"],
-        "max_abs_err": fp["max_abs_err"], "ms": fp["ms"], "plain_ms": fp["plain_ms"],
-        **achieved(fp, fp["ms"]), "library_ms": None,
+        "max_abs_err": fp["max_abs_err"],
     }, {
         "name": "kernel_probe", "route": "cuda", "source": KP_SOURCE,
         "replaces": KP_REPLACES, "launches": sum(kp["path_launches"].values()),
-        "max_abs_err": kp["max_abs_err"], "ms": chain["ms"], "plain_ms": chain["plain_ms"],
-        **achieved(kp, chain["ms"]), "library_ms": None,
-        "variants": {v: {**t, "launches": kp["path_launches"][v]}
-                     for v, t in kp["variants"].items()},
+        "max_abs_err": kp["max_abs_err"], "variant_launches": kp["path_launches"],
     }]
     if any(e["launches"] <= 0 for e in kernels) or min(flat_paths.values()) <= 0 or \
             min(v1_paths.values()) <= 0 or min(pq_paths.values()) <= 0:

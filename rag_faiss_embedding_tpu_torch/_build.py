@@ -18,7 +18,6 @@ import re
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -81,18 +80,13 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
-    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
             f"nvcc failed on {src.name} ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
-    build.seconds[name] = time.perf_counter() - t0
     return out
-
-
-build.seconds = {}  # wall time of each compile made by this process
 
 
 @functools.lru_cache(maxsize=None)

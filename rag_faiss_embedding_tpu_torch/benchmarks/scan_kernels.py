@@ -10,8 +10,11 @@ Run from the repository root, with one CUDA card visible:
 ``--root DIR`` imports ``rag_faiss_embedding_tpu_torch`` from DIR, another
 checkout of the repository (a ``git archive`` of an earlier commit), so two
 versions of the kernels can be timed on one card in one run: run it once
-per root, in turns (a b b a). The data and the helpers that cut a search
-into its kernel call are ``chip_smoke.py``'s, from this checkout.
+per root, in turns (a b b a). It loads this checkout's ``chip_smoke.py`` by
+its path, whatever ``--root`` holds, for three names only: ``SEED``,
+``ivf_build`` (the 1M IVF data and build) and ``union_args`` (a search cut
+to its union-scan call), so that both checkouts' kernels are timed on the
+same rows. The timers are this file's own.
 
 Shapes: K1 over 1,048,576 x 384 float32 rows (chip_smoke's kernel phase) at
 Q = 1 and 1,024, k = 10, with row norms precomputed as the index keeps them,
@@ -27,10 +30,11 @@ only the selection's work) and the prototype search; K6 at the probe's shape
 (``benchmarks.kernel_probe.make_inputs``: U 260, BB 10, CAP 2, 4 chunks of
 256 queries), each variant. K4 at the rows its paths launch it on
 (``K4_ROWS``), M 48, ksub 256, dsub 8, in bf16 and f32: the per-call time
-as chip_smoke's ``cuda_ms`` takes it (host work included), the kernel's
-device time (``torch.profiler``), the wrapper's host time (the host clock
-over back-to-back calls, no synchronize), the bytes bound, and
-``F.embedding`` on the same inputs (per call and device).
+as ``cuda_ms`` takes it (host work included), the kernel's device time
+(``device_ms``), the wrapper's host time (``host_us``), the bytes bound at
+the card's HBM rate, and ``F.embedding`` on the same inputs (per call and
+device). ``build_s`` is ``ivf_build``'s wall time: the rows, the build and
+their exact top-10.
 ``--k4-crossover`` (this checkout's kernels only) also times K4 with its
 codebook gathered through L2 and staged in shared memory, in turns, at N
 either side of the staged band (``K4_CROSSOVER_ROWS``): the measurements
@@ -47,19 +51,72 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 KERNELS = ("flat_scan", "union_scan", "fused_proto", "kernel_probe", "pq_decode")
-# K4's rows per launch on its paths (chip_smoke's ``rows_per_launch``): the
-# PQ slice's 4,096; a shard's union of the sharded IVF-PQ, 16,384 and
-# 32,768; union segments of the 10M chunked IVF-PQ, 180,224 and 360,448;
-# flat PQ's 524,288-row chunks; and 1M
+# The card's published HBM rate (H100 SXM): K4's bound is its bytes over it
+HBM_BYTES_PER_S = 3.35e12
+# K4's rows per launch on its paths (chip_smoke's ``PQ_PATH_ROWS``): the PQ
+# slice's 4,096; a shard's union of the sharded IVF-PQ, 16,384 and 32,768;
+# union segments of the 10M chunked IVF-PQ, 180,224 and 360,448; flat PQ's
+# 524,288-row chunks; and 1M
 K4_ROWS = {"slice": 4096, "shard union": 16384, "shard union x2": 32768,
            "short chunked segment": 180224, "chunked segment": 360448,
            "flat chunk": 1 << 19, "1M": 1 << 20}
+
+
+def cuda_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
+    """Median device time of ``fn`` in ms over ``reps`` CUDA-event runs."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of ``fn`` in ms: the summed time of the kernels it
+    launches, over ``reps`` warm calls, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back with device events missing
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(on_card) >= reps:  # fn launches at least one kernel a call
+            return sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / reps
+    raise AssertionError("torch.profiler missed the device's kernels three times")
+
+
+def host_us(torch, fn, reps: int) -> float:
+    """Host-clock time of one call of ``fn`` in microseconds: ``reps``
+    back-to-back calls with no synchronize in between (fewer than the
+    launch queue holds, so the host does not wait for the device)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def pq_decode_times(torch, C, PD) -> dict:
@@ -89,13 +146,13 @@ def pq_decode_times(torch, C, PD) -> dict:
                 plan = PD.plan(m, ksub, dsub, dtype)
             reps = 50 if n <= 65536 else 10  # the host's noise weighs most at small N
             out[f"{name} {n} {str(dtype).removeprefix('torch.')}"] = {
-                "rows": n, "ms": C.cuda_ms(torch, lambda: PD.decode(cb, codes), reps),
-                "device_ms": C.device_ms(torch, lambda: PD.decode(cb, codes)),
-                "host_us": C.host_us(torch, lambda: PD.decode(cb, codes),
-                                     1000 if n <= 65536 else 200),
-                "bound_ms": C.bound(nbytes, 0, "bfloat16")[0],
-                "library_ms": C.cuda_ms(torch, lambda: Fn.embedding(flat, table), reps),
-                "library_device_ms": C.device_ms(torch, lambda: Fn.embedding(flat, table)),
+                "rows": n, "ms": cuda_ms(torch, lambda: PD.decode(cb, codes), reps),
+                "device_ms": device_ms(torch, lambda: PD.decode(cb, codes)),
+                "host_us": host_us(torch, lambda: PD.decode(cb, codes),
+                                   1000 if n <= 65536 else 200),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "library_ms": cuda_ms(torch, lambda: Fn.embedding(flat, table), reps),
+                "library_device_ms": device_ms(torch, lambda: Fn.embedding(flat, table)),
                 "plan": plan}
             del codes, flat
         torch.cuda.empty_cache()
@@ -133,7 +190,7 @@ def pq_decode_crossover(torch, C, PD) -> dict:
                     if not torch.equal(PD.decode(cb, codes).view(bits), ref):
                         raise AssertionError(f"pq_decode ({way}) differs at {n} rows")
                     row.setdefault(way, []).append(
-                        C.device_ms(torch, lambda: PD.decode(cb, codes)))
+                        device_ms(torch, lambda: PD.decode(cb, codes)))
                 PD.STAGED_MIN_ROWS, PD.STAGED_MAX_BYTES = chosen
                 row["chosen"] = "staged" if PD.plan(m, ksub, dsub, dtype, n)["staged"] else "l2"
                 out[f"{n} {str(dtype).removeprefix('torch.')}"] = row
@@ -151,12 +208,12 @@ def flat_scan_times(torch, C, F, sqnorms, waves: bool) -> dict:
     k1 = {}
     for nq in (1, 1024):
         q = torch.randn(nq, 384, generator=g, device="cuda")
-        k1[f"1M Q={nq}"] = C.cuda_ms(torch, lambda: F.flat_search(q, big, 10, db_sq=big_sq))
-    k1["1M Q=1024 plain"] = C.cuda_ms(
+        k1[f"1M Q={nq}"] = cuda_ms(torch, lambda: F.flat_search(q, big, 10, db_sq=big_sq))
+    k1["1M Q=1024 plain"] = cuda_ms(
         torch, lambda: F.flat_search_reference(q, big, 10, db_sq=big_sq), 5, 1)
     small, q1 = big[:4096].contiguous(), big[:1].clone()
     small_sq = sqnorms(small)
-    k1["slice Q=1"] = C.cuda_ms(torch, lambda: F.flat_search(q1, small, 5, db_sq=small_sq))
+    k1["slice Q=1"] = cuda_ms(torch, lambda: F.flat_search(q1, small, 5, db_sq=small_sq))
     # k above KMAX and a mask of dead rows (30%); None where the timed
     # checkout refuses them
     dead = torch.rand(1 << 20, generator=g, device="cuda") < 0.3
@@ -169,15 +226,15 @@ def flat_scan_times(torch, C, F, sqnorms, waves: bool) -> dict:
         except (ValueError, TypeError):
             k1[name] = None
             continue
-        k1[name] = C.cuda_ms(torch, lambda: F.flat_search(qq, big, k, db_sq=big_sq, **kw))
+        k1[name] = cuda_ms(torch, lambda: F.flat_search(qq, big, k, db_sq=big_sq, **kw))
     for k, reps in ((100, 5), (1000, 3)):
-        k1[f"1M Q=1 k={k} plain"] = C.cuda_ms(
+        k1[f"1M Q=1 k={k} plain"] = cuda_ms(
             torch, lambda: F.flat_search_reference(qk, big, k, db_sq=big_sq), reps, 1)
     if waves:
         chosen = F._TILED_WAVES
         for w in (1, 2, 4):
             F._TILED_WAVES = w
-            k1[f"1M Q=1024 tiled, {w} waves"] = C.cuda_ms(
+            k1[f"1M Q=1024 tiled, {w} waves"] = cuda_ms(
                 torch, lambda: F.flat_search(q, big, 10, db_sq=big_sq, path="tiled"))
         F._TILED_WAVES = chosen
     del big, big_sq
@@ -189,15 +246,18 @@ def ivf_kernel_times(torch, C, S, U, kernels) -> dict:
     """K2 / K3, K5 and K6 (those of them in ``kernels``) over chip_smoke's 1M
     bf16 IVF build and the probe's inputs."""
     out = {}
-    idx, build_s, queries, _ = C.ivf_build(torch)
+    t0 = time.perf_counter()
+    idx, queries, _ = C.ivf_build(torch)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     if "union_scan" in kernels:
         k2 = {"build_s": build_s}
         for variant in (1, 2):
             call, disp = C.union_args(S, idx, queries, 10, variant)
-            k2[f"v{variant} Q=1024"] = C.cuda_ms(torch, lambda: U.union_scan(**call))
+            k2[f"v{variant} Q=1024"] = cuda_ms(torch, lambda: U.union_scan(**call))
         k2["nprobe"] = disp["nprobe"]
         idx.backend, idx.pallas_variant = "auto", 1
-        k2["search Q=1024"] = C.cuda_ms(torch, lambda: idx.search(queries, 10))
+        k2["search Q=1024"] = cuda_ms(torch, lambda: idx.search(queries, 10))
         out["union_scan"] = k2
 
     from rag_faiss_embedding_tpu_torch.benchmarks import fused_proto as BF
@@ -207,15 +267,15 @@ def ivf_kernel_times(torch, C, S, U, kernels) -> dict:
 
     if "fused_proto" in kernels:
         _, _, cells = BF.cell_args(queries, idx)
-        out["fused_proto"] = {f"Q=1024 kp={kp}": C.cuda_ms(
+        out["fused_proto"] = {f"Q=1024 kp={kp}": cuda_ms(
             torch, lambda: FP.block_topk(**cells, kp=kp)) for kp in (BF.KP, 1, FP.KP_MAX)}
-        out["fused_proto"]["search Q=1024"] = C.cuda_ms(torch, lambda: BF.search(queries, idx))
+        out["fused_proto"]["search Q=1024"] = cuda_ms(torch, lambda: BF.search(queries, idx))
         del cells
     del idx
     torch.cuda.empty_cache()
     if "kernel_probe" in kernels:
         inputs = BK.make_inputs(device=torch.device("cuda"), seed=C.SEED)
-        out["kernel_probe"] = {v: C.cuda_ms(torch, lambda: KP.probe(v, **inputs, bb=BK.BB,
+        out["kernel_probe"] = {v: cuda_ms(torch, lambda: KP.probe(v, **inputs, bb=BK.BB,
                                                                     cap=BK.CAP))
                                for v in KP.VARIANTS}
     return out

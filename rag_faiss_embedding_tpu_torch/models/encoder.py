@@ -38,7 +38,7 @@ from .convert import (
     load_pretrained,
 )
 from .minilm import MiniLMConfig, MiniLMEncoder
-from .tokenizer import WordPieceTokenizer, pad_length
+from .tokenizer import WordPieceTokenizer
 
 logger = get_logger(__name__)
 
@@ -155,13 +155,12 @@ class EmbeddingPipeline:
         texts = list(texts)
         if not texts:
             return np.zeros((0, self.cfg.hidden_size), np.float32)
-        with span("encoder.embed", rows=len(texts)) as s:
+        with span("encoder.embed", rows=len(texts)):
             tok = self._require_tokenizer(texts)
             if len(texts) > batch_size:
                 order = np.argsort([-len(t) for t in texts], kind="stable")
             else:
                 order = np.arange(len(texts))
-            real = np.empty(len(texts), np.int64) if s else None  # tokens a row
             ranges = range(0, len(texts), batch_size)
             if show_progress:
                 try:
@@ -178,8 +177,6 @@ class EmbeddingPipeline:
                     ids, mask = tok.encode_batch(batch, self.max_seq_length)
                     if t:
                         t.add(real_tokens=int(mask.sum()), positions=mask.size)
-                if s:
-                    real[rows] = mask.sum(1)
                 with span("encoder.forward", rows=len(batch)):
                     emb = self._forward(ids, mask)
                 with span("encoder.to_host", rows=len(batch)):  # waits for the card
@@ -187,13 +184,6 @@ class EmbeddingPipeline:
                 # CLS pooling gives a view of the batch's last hidden states:
                 # free them before the next batch's forward
                 del emb
-            if s:  # padded positions of these batches, and of arrival-order ones
-                def padded(lengths):
-                    return sum(len(c) * pad_length(int(c.max()), self.max_seq_length)
-                               for c in np.split(lengths, range(batch_size, len(lengths),
-                                                                batch_size)))
-
-                s.add(positions=padded(real[order]), arrival_positions=padded(real))
             return out
 
     def embed_query(self, text: str) -> np.ndarray:

@@ -55,8 +55,9 @@ _CHUNK_COLS = (1024, 512, 256, 128)
 WARP, TILED = 0, 1
 PATHS = {"warp": WARP, "tiled": TILED}
 # fewest queries that take the tiled path: the crossover measured on an
-# H100 over 1M x 384 float32 rows (PERF.md, the kernel table's findings;
-# chip_smoke.py times both paths at each of its CROSSOVER_Q)
+# H100 over 1M x 384 float32 rows (PERF.md, the kernel table's findings);
+# benchmarks/scan_kernels.py times K1 (forcing each path at the Q either
+# side of it is not one of its options yet)
 TILED_MIN_Q = 25
 
 

@@ -20,8 +20,7 @@ rows in the codebook's dtype: row r's subspace s is codeword
   the launch writes) or gathered through L2, the subspace groups, rows per
   tile, threads and grid.
 
-``decode.launches`` counts kernel launches (N = 0 launches nothing);
-``decode.rows``, when set to a list, gets each launch's N appended.
+``decode.launches`` counts kernel launches (N = 0 launches nothing).
 """
 
 from __future__ import annotations
@@ -251,10 +250,7 @@ def decode(codebooks: torch.Tensor, codes: torch.Tensor,
         raise RuntimeError("pq_decode kernel launch failed: "
                            + lib.rfe_pq_decode_error_string(err).decode())
     decode.launches += 1
-    if decode.rows is not None:
-        decode.rows.append(n)
     return out
 
 
 decode.launches = 0
-decode.rows = None  # a list: each launch appends its N (chip_smoke's histogram)

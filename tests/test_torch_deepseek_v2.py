@@ -1,5 +1,5 @@
 """The port's DeepSeek-V2 generator (``models/deepseek_v2.py``) against the
-plain float32 reference (``tests/ref_deepseek_v2.py``) on the CPU, at a
+plain float32 reference (``perfbench/reference/deepseek_v2.py``) on the CPU, at a
 small size with DeepSeek-V2-Lite's mechanisms: one dense and two MoE
 layers, 8 routed experts of which 2 a token, 2 shared, latent rank 32,
 rope 16, YaRN as published; and its place behind ``Config``,
@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests import ref_deepseek_v2 as R
+from perfbench.reference import deepseek_v2 as R
 from rag_faiss_embedding_tpu_torch.core import Config
 from rag_faiss_embedding_tpu_torch.models import EmbeddingPipeline, MiniLMConfig
 from rag_faiss_embedding_tpu_torch.models import deepseek_v2 as D
@@ -166,11 +166,6 @@ def test_cache_holds_576_values_a_token_a_layer():
     scales = torch.stack([layer.kv_norm for layer in m.layers])[:, None]
     rms = (m.cache[:, :21, :32] / scales).pow(2).mean(-1).sqrt()
     torch.testing.assert_close(rms, torch.ones_like(rms), rtol=1e-4, atol=1e-4)
-
-
-def test_the_two_reference_copies_agree():
-    assert (REPO / "tests/ref_deepseek_v2.py").read_bytes() == (
-        REPO / "perfbench/reference/deepseek_v2.py").read_bytes()
 
 
 def test_state_dict_round_trips_under_the_checkpoint_names():

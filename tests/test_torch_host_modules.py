@@ -8,7 +8,8 @@ each copy to its original on the same inputs, and check, by an ``ast`` scan
 and in a fresh process, that no module of the port (nor ``chip_smoke.py``)
 imports ``jax``, ``flax``, ``optax``, ``orbax`` or ``rag_faiss_embedding_tpu``, nor a host
 library the card's machine lacks (``aiohttp``, ``bs4``, ``rich``,
-``fastapi``).
+``fastapi``); and that the benchmark scripts borrowing ``chip_smoke.py``'s
+data read only names it defines.
 """
 
 import ast
@@ -60,6 +61,37 @@ def test_no_source_imports_the_jax_package(source):
 def test_no_source_imports_a_library_the_card_lacks(source):
     bad = sorted(set(_imported(REPO / source)) & set(MISSING_ON_THE_CARD))
     assert not bad, f"{source} imports {bad}"
+
+
+def _top_level_names(path: Path) -> set:
+    """Functions, classes and assigned names at the top level of ``path``."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(n.id for t in node.targets for n in ast.walk(t)
+                         if isinstance(n, ast.Name))
+    return names
+
+
+@pytest.mark.parametrize("script,reads", [
+    ("rag_faiss_embedding_tpu_torch/benchmarks/scan_kernels.py",
+     {"SEED", "ivf_build", "union_args"}),
+    ("rag_faiss_embedding_tpu_torch/benchmarks/train_mesh.py",
+     {"N_DOCS", "SEED", "TRAIN_BATCH", "TRAIN_LEN", "TRAIN_LR", "TRAIN_VOCAB",
+      "corpus_documents"}),
+])
+def test_benchmarks_read_only_what_chip_smoke_defines(script, reads):
+    """Each ``C.<name>`` a script reads of ``chip_smoke.py`` (its data, not
+    its timers, which are the script's own) is defined at chip_smoke's top
+    level. Neither file runs here, so a name gone from chip_smoke would
+    otherwise show only on the card."""
+    used = {n.attr for n in ast.walk(ast.parse((REPO / script).read_text()))
+            if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
+            and n.value.id == "C"}
+    assert used == reads
+    assert used <= _top_level_names(REPO / "chip_smoke.py")
 
 
 _NO_JAX_SCRIPT = textwrap.dedent("""

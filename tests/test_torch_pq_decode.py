@@ -76,7 +76,7 @@ def test_cpu_decode_never_launches_and_takes_empty_input():
 
 # The launch plan (ops/pq_decode.plan): a pure function of N, the codebook's
 # shape and the card's limits, held here to the rules the kernel relies on.
-# Path shapes (rows per launch, chip_smoke's histogram): the PQ slice's
+# Path shapes (rows per launch, chip_smoke's PQ_PATH_ROWS): the PQ slice's
 # 4,096 and 16,384, a shard's union (16,384, 32,768), union segments of the
 # 10M chunked IVF-PQ (180,224, 360,448), flat PQ's 524,288-row chunks, 1M.
 PATH_ROWS = (4096, 16384, 32768, 180224, 360448, 1 << 19, 1 << 20)
