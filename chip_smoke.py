@@ -17,8 +17,9 @@ paths at full size. Phases, in the order they run, one JSON object per line:
 1. env: torch / CUDA versions and the card (``nvidia-smi``'s name and power
    limit, also printed raw on the line after it).
 2. build: ``nvcc`` builds ``rag_faiss_embedding_tpu_torch/csrc/flat_scan.cu``,
-   ``csrc/union_scan.cu``, ``csrc/pq_decode.cu``, ``csrc/fused_proto.cu`` and
-   ``csrc/kernel_probe.cu`` for sm_90a, all at once.
+   ``csrc/union_scan.cu``, ``csrc/pq_decode.cu``, ``csrc/fused_proto.cu``,
+   ``csrc/kernel_probe.cu`` and ``csrc/mla_prefill_attention.cu`` for
+   sm_90a, all at once.
 3. kernel: the flat-scan kernel against its plain torch version on the same
    CUDA tensors over the 1,048,576 x 384 float32 database: each stage-1 path
    (one query per warp, the tiled block) forced at each Q of CROSSOVER_Q,
@@ -171,6 +172,13 @@ paths at full size. Phases, in the order they run, one JSON object per line:
     rtol plus two packing quanta, each carrying its own block's float64
     score; NaN bins exact), ``chain`` to ``temps`` bit for bit, and a
     crafted negative-subnormal score that ``temps_f32`` keeps as a NaN.
+17. mla_prefill: DeepSeek-V2-Lite at its published widths and depth
+    (seeded random bf16 weights) prefills a 16,896-token prompt, the answer
+    cell's length: each of its 27 layers' attention goes through
+    ``mla_prefill_attention`` on the card and is held, on the same operands,
+    to ``mla_prefill_attention_reference`` (every row's relative L2 within
+    MLA_REL_L2, every value within 2^-6 of its row's largest: both round the
+    probabilities and the output to bf16); the model counts 27 launches.
 
 Then a ``{"kernels": [...]}`` line (launch counts from each kernel's path,
 with a ``paths`` breakdown: the flat scan's from the slice, the server, the
@@ -179,7 +187,8 @@ union-scan variant 1's from the IVF slice, the IVF server, the chunked bf16
 build and the sharded IVF (1M and the slice), variant 2's from the IVF
 kernel phase, the PQ decode's from the PQ slice, the 10M searches and the
 sharded IVF-PQ, K5's from the prototype search, K6's from the probe's
-checks; each with its largest kernel-vs-plain error) and, last, ``{"ok":
+checks, the prefill attention's from the prefill; each with its largest
+kernel-vs-plain error) and, last, ``{"ok":
 true, "device": {...}}``. Any failed check raises, so the script exits
 non-zero without the last line. It needs no network and loads nothing of
 JAX or the JAX package; it exits non-zero where no CUDA device is present or
@@ -212,6 +221,10 @@ FP_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/fused_proto.cu"
 FP_REPLACES = "benchmarks/pallas_fused_proto.py:71"
 KP_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/kernel_probe.cu"
 KP_REPLACES = "benchmarks/pallas_kernel_probe.py:57"
+MLA_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/mla_prefill_attention.cu"
+# the answer cell's prompt rows; the rows' relative L2 limit of
+# tests/test_torch_mla_attention.py (probabilities and output rounded to bf16)
+MLA_PROMPT, MLA_REL_L2 = 16896, 1e-2
 # top-level packages the port must never load
 FORBIDDEN_MODULES = ("jax", "flax", "optax", "orbax", "rag_faiss_embedding_tpu")
 N_DOCS = 4096
@@ -2937,6 +2950,70 @@ def kernel_probe_phase(torch):
     }
 
 
+# ----------------------------------------------------------------- phase 17
+def mla_prefill_phase(torch):
+    """DeepSeek-V2-Lite (seeded random bf16 weights: matrices normal with
+    std 1/sqrt(fan in), norms 1 + 0.02 normal) prefilling MLA_PROMPT random
+    tokens on the card; each layer's kernel output held to the plain version
+    on the same operands."""
+    from rag_faiss_embedding_tpu_torch.models import deepseek_v2 as DS
+    from rag_faiss_embedding_tpu_torch.ops import mla_attention as A
+
+    cfg = DS.DeepseekV2Config()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    sd = {}
+    for name, shape in DS.param_shapes(cfg).items():
+        w = torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+        sd[name] = w.mul_(0.02).add_(1.0) if len(shape) == 1 else w.mul_(shape[1] ** -0.5)
+    model = DS.DeepseekV2(cfg, "cuda")
+    model.load_state_dict(sd)
+    del sd, w
+    torch.cuda.empty_cache()
+
+    kernel, layers = A.mla_prefill_attention, []
+
+    def held(*ops):  # the kernel, then the plain version on the same operands
+        launched = kernel.launches
+        got = kernel(*ops)
+        held.launches += kernel.launches - launched
+        torch.cuda.synchronize()
+        want = A.mla_prefill_attention_reference(*ops).float()
+        diff = got.float() - want
+        layers.append((float((diff.norm(dim=-1) / want.norm(dim=-1)).max()),
+                       float((diff.abs() / want.abs().amax(-1, keepdim=True)).max())))
+        return got
+
+    ids = torch.randint(0, cfg.vocab_size, (MLA_PROMPT,), generator=g, device="cuda")
+    held.launches = kernel.launches = 0  # count the prefill's launches only
+    DS.mla_prefill_attention = held
+    try:
+        logits = model.prefill(ids)
+    finally:
+        DS.mla_prefill_attention = kernel
+    launches, counted = kernel.launches, model.attention_launches
+    rel, far = max(r for r, _ in layers), max(f for _, f in layers)
+    if launches != cfg.num_hidden_layers or counted != launches:
+        raise AssertionError(f"{launches} kernel launches ({counted} counted by the model) "
+                             f"for {cfg.num_hidden_layers} layers")
+    if not rel <= MLA_REL_L2 or not far <= 2.0 ** -6:
+        raise AssertionError(f"prefill attention differs from its plain version: rows' "
+                             f"relative L2 {rel}, {far} of a row's largest")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("the prefill's logits are not finite")
+    peak = torch.cuda.max_memory_allocated()
+    del model, logits
+    torch.cuda.empty_cache()
+    return {
+        "phase": "mla_prefill", "prompt": MLA_PROMPT, "layers": cfg.num_hidden_layers,
+        "heads": cfg.num_attention_heads, "widths": {"q_k": cfg.qk_head_dim,
+                                                     "v": cfg.v_head_dim},
+        "path_launches": launches, "model_attention_launches": counted,
+        "rel_l2_max": rel, "rel_l2_limit": MLA_REL_L2, "abs_over_row_max": far,
+        "rel_l2_by_layer": [r for r, _ in layers], "peak_device_bytes": peak,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2959,16 +3036,18 @@ def main() -> int:
     from rag_faiss_embedding_tpu_torch.ops import flat_scan as F
     from rag_faiss_embedding_tpu_torch.ops import fused_proto as FP
     from rag_faiss_embedding_tpu_torch.ops import kernel_probe as KP
+    from rag_faiss_embedding_tpu_torch.ops import mla_attention as A
     from rag_faiss_embedding_tpu_torch.ops import pq_decode as PD
     from rag_faiss_embedding_tpu_torch.ops import union_scan as U
 
-    names = ("flat_scan", "union_scan", "pq_decode", "fused_proto", "kernel_probe")
+    names = ("flat_scan", "union_scan", "pq_decode", "fused_proto", "kernel_probe",
+             "mla_prefill_attention")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:  # one nvcc each
         libs = dict(zip(names, pool.map(_build.build, names)))
-    for mod in (F, U, PD, FP, KP):  # load the libraries and bind their entry points
+    for mod in (F, U, PD, FP, KP, A):  # load the libraries and bind their entry points
         mod.load()
     emit({"phase": "build", "sources": [KERNEL_SOURCE, UNION_SOURCE, PQ_SOURCE, FP_SOURCE,
-                                        KP_SOURCE],
+                                        KP_SOURCE, MLA_SOURCE],
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
 
     paths, max_err = kernel_phase(torch, F)
@@ -3009,6 +3088,8 @@ def main() -> int:
     emit(train)
     kp = kernel_probe_phase(torch)
     emit(kp)
+    mla = mla_prefill_phase(torch)
+    emit(mla)
 
     loaded = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES]
     if loaded:
@@ -3056,6 +3137,10 @@ def main() -> int:
         "name": "kernel_probe", "route": "cuda", "source": KP_SOURCE,
         "replaces": KP_REPLACES, "launches": sum(kp["path_launches"].values()),
         "max_abs_err": kp["max_abs_err"], "variant_launches": kp["path_launches"],
+    }, {
+        "name": "mla_prefill_attention", "route": "cuda", "source": MLA_SOURCE,
+        "replaces": None, "launches": mla["path_launches"],
+        "rel_l2_max": mla["rel_l2_max"], "max_abs_err_over_row_max": mla["abs_over_row_max"],
     }]
     if any(e["launches"] <= 0 for e in kernels) or min(flat_paths.values()) <= 0 or \
             min(v1_paths.values()) <= 0 or min(pq_paths.values()) <= 0:

@@ -1,11 +1,12 @@
 """Time the scan kernels K1 (flat scan), K2 / K3 (IVF union scan), K4 (the
 PQ decode), K5 (the prototype's cell top-k) and K6 (the union-scan stage
-probe) at their headline shapes on one card, beside K1's plain version.
+probe) at their headline shapes on one card, beside K1's plain version, and
+the answer generator's prefill attention (``ops/mla_attention``).
 
 Run from the repository root, with one CUDA card visible:
 
     python3 rag_faiss_embedding_tpu_torch/benchmarks/scan_kernels.py [--root DIR] [--waves]
-        [--kernels pq_decode ...]
+        [--kernels pq_decode attention ...]
 
 ``--root DIR`` imports ``rag_faiss_embedding_tpu_torch`` from DIR, another
 checkout of the repository (a ``git archive`` of an earlier commit), so two
@@ -35,6 +36,13 @@ as ``cuda_ms`` takes it (host work included), the kernel's device time
 the card's HBM rate, and ``F.embedding`` on the same inputs (per call and
 device). ``build_s`` is ``ivf_build``'s wall time: the rows, the build and
 their exact top-10.
+The prefill attention (``attention``) at one layer of the answer cell's
+prefill (``ATTN_N`` rows, DeepSeek-V2-Lite's 16 heads, q / k 192, v 128,
+operands laid out as ``DeepseekV2._attend_prefill`` has them): the kernel's
+per-call and device time, its bound (the causal attention's FLOPs at bf16's
+989 TFLOP/s), its plain version, and as ``library_device_ms`` the
+device time of PyTorch's FlashAttention-2 over v padded to 192 (what the
+port called before). It needs a checkout that has the kernel.
 ``--k4-crossover`` (this checkout's kernels only) also times K4 with its
 codebook gathered through L2 and staged in shared memory, in turns, at N
 either side of the staged band (``K4_CROSSOVER_ROWS``): the measurements
@@ -58,9 +66,13 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-KERNELS = ("flat_scan", "union_scan", "fused_proto", "kernel_probe", "pq_decode")
+KERNELS = ("flat_scan", "union_scan", "fused_proto", "kernel_probe", "pq_decode", "attention")
 # The card's published HBM rate (H100 SXM): K4's bound is its bytes over it
 HBM_BYTES_PER_S = 3.35e12
+# and its dense bf16 tensor-core rate: the prefill attention's bound
+BF16_FLOPS = 989e12
+# the answer cell's prompt rows: one prefill's attention a layer
+ATTN_N = 16896
 # K4's rows per launch on its paths (chip_smoke's ``PQ_PATH_ROWS``): the PQ
 # slice's 4,096; a shard's union of the sharded IVF-PQ, 16,384 and 32,768;
 # union segments of the 10M chunked IVF-PQ, 180,224 and 360,448; flat PQ's
@@ -281,6 +293,55 @@ def ivf_kernel_times(torch, C, S, U, kernels) -> dict:
     return out
 
 
+def attention_times(torch, C) -> dict:
+    """One prefill layer's causal attention at ``ATTN_N`` rows x 16 heads:
+    the kernel (held to its plain version first), its plain version, and
+    FlashAttention-2 over v padded to 192."""
+    import torch.nn.functional as Fn
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from rag_faiss_embedding_tpu_torch.models.deepseek_v2 import DeepseekV2Config
+    from rag_faiss_embedding_tpu_torch.ops import mla_attention as A
+
+    cfg = DeepseekV2Config()
+    n, heads, rank = ATTN_N, cfg.num_attention_heads, cfg.kv_lora_rank
+    nope, rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    g = torch.Generator(device="cuda").manual_seed(C.SEED)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    qa = randn(n, heads * (nope + rope) + cfg.cache_width)
+    q_nope = qa[:, : heads * nope].view(n, heads, nope)
+    q_pe, rows, kv = randn(n, heads, rope), randn(n, cfg.cache_width), randn(n, heads, nope + dv)
+    k_nope, v = kv.split([nope, dv], -1)
+    k_pe, scale = rows[:, rank:], cfg.softmax_scale
+    flops = 2 * heads * n * (n + 1) / 2 * (nope + rope + dv)
+    out = {"n": n, "heads": heads, "flops": flops, "bound_ms": flops / BF16_FLOPS * 1e3}
+    ops = (q_nope, q_pe, k_nope, k_pe, v, scale)
+    got = A.mla_prefill_attention(*ops).float()
+    want = A.mla_prefill_attention_reference(*ops).float()
+    rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    if rel > 1e-2:
+        raise AssertionError(f"mla_prefill_attention differs from its plain version: {rel}")
+    del got, want
+    out["ms"] = cuda_ms(torch, lambda: A.mla_prefill_attention(*ops))
+    out["device_ms"] = device_ms(torch, lambda: A.mla_prefill_attention(*ops), 10)
+    out["share"] = out["bound_ms"] / out["device_ms"]
+    out["plain_ms"] = cuda_ms(torch, lambda: A.mla_prefill_attention_reference(*ops), 3, 1)
+
+    q = torch.cat((q_nope, q_pe), -1).transpose(0, 1)[None]
+    k = torch.cat((k_nope, k_pe[:, None].expand(n, heads, rope)), -1).transpose(0, 1)[None]
+    vp = Fn.pad(v, (0, nope + rope - dv)).transpose(0, 1)[None]
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        out["library_device_ms"] = device_ms(
+            torch, lambda: Fn.scaled_dot_product_attention(q, k, vp, is_causal=True,
+                                                           scale=scale), 10)
+    del q, k, vp
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=REPO,
@@ -319,6 +380,8 @@ def main() -> int:
         out["pq_decode"] = pq_decode_times(torch, C, PD)
     if args.k4_crossover:
         out["pq_decode_crossover"] = pq_decode_crossover(torch, C, PD)
+    if "attention" in args.kernels:
+        out["attention"] = attention_times(torch, C)
     if "flat_scan" in args.kernels:
         out["flat_scan"] = flat_scan_times(torch, C, F, sqnorms, args.waves)
     if {"union_scan", "fused_proto", "kernel_probe"} & set(args.kernels):

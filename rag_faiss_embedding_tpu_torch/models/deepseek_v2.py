@@ -25,18 +25,22 @@ It is one buffer ``[layers, capacity, 576]``, kept across calls and grown,
 by whole steps of ``RESERVE_STEP`` positions, only when a call needs more.
 
 Two attention paths. ``prefill`` expands keys and values from the latent
-rows and runs causal ``scaled_dot_product_attention`` (``v`` padded to the
-192 of ``q`` and ``k``, which every fused backend takes; FlashAttention-2
-on the card, not cuDNN's, see ``_PREFILL_ATTENTION``); the head runs at
-the last position only. ``decode`` never expands the cache: ``W_UK`` is
-absorbed into the query (``q_nope W_UK`` scores the 512 latent values
-directly) and ``W_UV`` into the output (the probabilities weight the
-latent rows, then ``W_UV`` maps them per head). A decode step takes its
-token and position from device buffers and scores every reserved row,
-those past its position masked, so its shapes are the cache's: on the
-card it is captured once as a CUDA graph and replayed. Eager, its ~1,200
-launches held the card to the host's pace (20-30 ms a step on an H100
-that needs ~7.6 replayed, and drifting with the host's load).
+rows (``W_kvb c_kv``, one product) and runs causal attention at MLA's own
+widths through ``ops/mla_attention.mla_prefill_attention``: q and k 192
+deep, v 128 wide, the rope key one column block all heads share, each
+operand a view of where the layer has it (no padding, no expanded or
+concatenated copy), the output [n, heads x 128] straight into ``W_o``; on
+the card that is the kernel ``csrc/mla_prefill_attention.cu``, on the CPU
+its plain version. The head runs at the last position only. ``decode``
+never expands the cache: ``W_UK`` is absorbed into the query (``q_nope
+W_UK`` scores the 512 latent values directly) and ``W_UV`` into the
+output (the probabilities weight the latent rows, then ``W_UV`` maps them
+per head). A decode step takes its token and position from device buffers
+and scores every reserved row, those past its position masked, so its
+shapes are the cache's: on the card it is captured once as a CUDA graph
+and replayed. Eager, its ~1,200 launches held the card to the host's
+pace (20-30 ms a step on an H100 that needs ~7.6 replayed, and drifting
+with the host's load).
 
 The MoE layer groups tokens by expert. A prefill or a decode step sorts
 its (token, choice) pairs by expert and runs all the groups in one grouped
@@ -76,13 +80,9 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.nn.attention import SDPBackend, sdpa_kernel
 
-# every SDPA backend but cuDNN's, which PyTorch prefers on sm90 and which
-# builds a plan for each new sequence length (~85 ms on an H100): every
-# prompt has a length of its own
-_PREFILL_ATTENTION = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
-                      SDPBackend.MATH]
+from ..ops.mla_attention import mla_prefill_attention
+
 RESERVE_STEP = 1024  # positions: the cache grows by whole steps
 
 
@@ -317,6 +317,7 @@ class DeepseekV2:
         self.cache: Optional[torch.Tensor] = None  # [layers, capacity, cache_width]
         self._rope: Optional[torch.Tensor] = None
         self._expert_counts: Optional[torch.Tensor] = None
+        self.attention_launches = 0  # the attention kernel's, in the last prefill
         self._step = None  # the decode step's device inputs, output and graph
 
     @property
@@ -465,14 +466,8 @@ class DeepseekV2:
         self.cache[i, :n] = rows
         kv = F.linear(rows[:, :rank], layer.kv_b).view(n, heads, -1)
         k_nope, v = kv.split([cfg.qk_nope_head_dim, cfg.v_head_dim], -1)
-        k_pe = rows[:, None, rank:].expand(n, heads, cfg.qk_rope_head_dim)
-        q = torch.cat((q_nope, q_pe), -1).transpose(0, 1)
-        k = torch.cat((k_nope, k_pe), -1).transpose(0, 1)
-        v = F.pad(v, (0, cfg.qk_head_dim - cfg.v_head_dim)).transpose(0, 1)
-        with sdpa_kernel(_PREFILL_ATTENTION):
-            o = F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=True,
-                                               scale=cfg.softmax_scale)[0, ..., : cfg.v_head_dim]
-        return F.linear(o.transpose(0, 1).reshape(n, -1), layer.o)
+        o = mla_prefill_attention(q_nope, q_pe, k_nope, rows[:, rank:], v, cfg.softmax_scale)
+        return F.linear(o, layer.o)
 
     def _attend_decode(self, i: int, x: torch.Tensor) -> torch.Tensor:
         """The decode step's position (``_step``'s, on the device) against
@@ -538,12 +533,16 @@ class DeepseekV2:
     @torch.inference_mode()
     def prefill(self, ids: torch.Tensor) -> torch.Tensor:
         """Positions ``0..len(ids)-1`` into the cache; the last one's logits.
-        ``expert_tokens``: tokens routed to each expert, summed over layers."""
+        ``expert_tokens``: tokens routed to each expert, summed over layers;
+        ``attention_launches``: launches of the attention kernel (one a layer
+        on the card, none on the CPU)."""
         self.reserve(len(ids))
         self._expert_counts.zero_()
+        launched = mla_prefill_attention.launches
         x = F.embedding(ids, self.embed).float()  # the residual stream in float32
         for i in range(self.cfg.num_hidden_layers):
             x = self._block(i, x, False)
+        self.attention_launches = mla_prefill_attention.launches - launched
         return self._head(x[-1:])
 
     @torch.inference_mode()

@@ -105,7 +105,8 @@ class NativeGenerator:
             logits = model.prefill(prompt)
             token = logits.argmax()
             if s:
-                s.add(expert_tokens=model.expert_tokens)
+                s.add(expert_tokens=model.expert_tokens,
+                      attention_launches=model.attention_launches)
             with span("generator.to_host"):
                 out = [int(token)]
         if kept is not None:

@@ -383,6 +383,7 @@ def test_generator_spans_and_expert_counter(tmp_path):
     assert prefill["counts"]["tokens"] == n
     experts = prefill["counts"]["expert_tokens"]
     assert len(experts) == 8 and sum(experts) == n * 2 * 2  # 2 a token, two MoE layers
+    assert prefill["counts"]["attention_launches"] == 0  # the CPU runs the plain version
     assert decode["counts"] == {"steps": 3, "context": n}
     copies = by["generator.to_host"]
     assert len(copies) == 4  # one a token
