@@ -179,6 +179,21 @@ paths at full size. Phases, in the order they run, one JSON object per line:
     to ``mla_prefill_attention_reference`` (every row's relative L2 within
     MLA_REL_L2, every value within 2^-6 of its row's largest: both round the
     probabilities and the output to bf16); the model counts 27 launches.
+18. kda_state_pass: Kimi-Linear-48B-A3B at its published widths and depth
+    (seeded random bf16 weights, 128 of its 256 experts held as one card of
+    two holds them) prefills a 16,896-token prompt: each of its 20 KDA
+    layers' chunk-to-chunk state pass goes through the kernel
+    ``csrc/kda_state_pass.cu`` and is held, on the same operands, to its
+    plain twin ``kda_state_pass_reference`` (every output and the last
+    state within KDA_REL of the largest: float32 sums in other orders); the
+    model counts 20 launches and 7 of the attention kernel. Then three
+    decode steps: in the first, run outside the graph it is captured in,
+    each KDA layer's decode kernel is held to its twin
+    ``kda_decode_step_reference`` on a copy of the state (the state within
+    KDA_REL of its largest, the bf16 output within KDA_DECODE_OUT_REL);
+    ``kda_decode_step.launches`` counts 20 for that step and 20 for the
+    graph's capture, and the profiler finds the kernel 20 times in the
+    third step, a replay of the graph.
 
 Then a ``{"kernels": [...]}`` line (launch counts from each kernel's path,
 with a ``paths`` breakdown: the flat scan's from the slice, the server, the
@@ -187,7 +202,9 @@ union-scan variant 1's from the IVF slice, the IVF server, the chunked bf16
 build and the sharded IVF (1M and the slice), variant 2's from the IVF
 kernel phase, the PQ decode's from the PQ slice, the 10M searches and the
 sharded IVF-PQ, K5's from the prototype search, K6's from the probe's
-checks, the prefill attention's from the prefill; each with its largest
+checks, the prefill attention's from the prefill, the KDA state pass's
+from the Kimi prefill, the KDA decode kernel's from its first decode step;
+each with its largest
 kernel-vs-plain error) and, last, ``{"ok":
 true, "device": {...}}``. Any failed check raises, so the script exits
 non-zero without the last line. It needs no network and loads nothing of
@@ -225,6 +242,10 @@ MLA_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/mla_prefill_attention.cu"
 # the answer cell's prompt rows; the rows' relative L2 limit of
 # tests/test_torch_mla_attention.py (probabilities and output rounded to bf16)
 MLA_PROMPT, MLA_REL_L2 = 16896, 1e-2
+KDA_SOURCE = "rag_faiss_embedding_tpu_torch/csrc/kda_state_pass.cu"
+# the KDA state pass against its twin, both float32: tests/test_torch_kimi_linear.py's;
+# the decode kernel's bf16 output against its twin's: one bf16 step of the largest
+KDA_REL, KDA_DECODE_OUT_REL = 1e-4, 2 ** -7
 # top-level packages the port must never load
 FORBIDDEN_MODULES = ("jax", "flax", "optax", "orbax", "rag_faiss_embedding_tpu")
 N_DOCS = 4096
@@ -3014,6 +3035,139 @@ def mla_prefill_phase(torch):
     }
 
 
+# ----------------------------------------------------------------- phase 18
+class _SeededKimi:
+    """Kimi-Linear's weights by checkpoint name, made on the card in bf16
+    when read (``KimiLinear.load_state_dict`` reads each once): matrices
+    normal with std 1/sqrt(fan in), norms 1 + 0.02 normal, KDA's ``A_log``
+    log of uniform [1, 16) and ``dt_bias`` about -4 (decays of a few
+    hundredths a token, as a trained layer's slower channels)."""
+
+    def __init__(self, torch, shapes, seed):
+        self.torch, self.shapes = torch, shapes
+        self.g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def keys(self):
+        return self.shapes.keys()
+
+    def __getitem__(self, name):
+        torch, shape = self.torch, self.shapes[name]
+        w = torch.randn(shape, generator=self.g, device="cuda")
+        if name.endswith("A_log"):
+            w = torch.rand(shape, generator=self.g, device="cuda").mul_(15).add_(1).log_()
+        elif name.endswith("dt_bias"):
+            w = w.add_(-4.0)
+        elif len(shape) == 1:
+            w = w.mul_(0.02).add_(1.0)
+        elif name != "model.embed_tokens.weight":
+            w = w.mul_(shape[1] ** -0.5)
+        return w.to(torch.bfloat16)
+
+
+def kda_state_pass_phase(torch):
+    """Kimi-Linear (seeded random bf16 weights, experts 0-127 of 256)
+    prefilling MLA_PROMPT random tokens on the card; each KDA layer's state
+    pass held to its twin on the same operands."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_faiss_embedding_tpu_torch.models import kimi_linear as KL
+    from rag_faiss_embedding_tpu_torch.ops import kda
+
+    hf = json.loads((ROOT / "perfbench/configs/kimi-linear-48b-a3b.rag-flat-bf16.json").read_text())
+    cfg = KL.KimiLinearConfig.from_hf(hf)
+    torch.cuda.reset_peak_memory_stats()
+    model = KL.KimiLinear(cfg, "cuda")
+    model.load_state_dict(_SeededKimi(torch, KL.param_shapes(cfg), SEED))
+    torch.cuda.empty_cache()
+
+    kernel, chunked, layers = kda.kda_state_pass, KL.kda_chunked, []
+
+    def held(q, k, v, g, beta, s_out):  # kda_chunked, then the twin on the kernel's operands
+        ops = kda.chunk_operands(q, k, v, g, beta)
+        out, last = kernel(*ops, s_out.zero_(), s_out)
+        want_out, want_last = kda.kda_state_pass_reference(*ops, torch.zeros_like(s_out))
+        layers.append(max(float((out - want_out).abs().max() / want_out.abs().max()),
+                          float((last - want_last).abs().max() / want_last.abs().max())))
+        return out
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    ids = torch.randint(0, cfg.vocab_size, (MLA_PROMPT,), generator=g, device="cuda")
+    launched = kernel.launches
+    KL.kda_chunked = held
+    try:
+        logits = model.prefill(ids)
+    finally:
+        KL.kda_chunked = chunked
+    launches = kernel.launches - launched
+    counts = model.prefill_counts()
+    n_kda, n_mla = len(cfg.kda_layers), len(cfg.mla_layers)
+    if launches != n_kda or counts["kda_launches"] != n_kda:
+        raise AssertionError(f"{launches} state pass launches ({counts['kda_launches']} "
+                             f"counted by the model) for {n_kda} KDA layers")
+    if counts["attention_launches"] != n_mla:
+        raise AssertionError(f"{counts['attention_launches']} attention launches for {n_mla} "
+                             "MLA layers")
+    worst = max(layers)
+    if not worst <= KDA_REL:
+        raise AssertionError(f"the KDA state pass differs from its twin: {worst} of the largest")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("the prefill's logits are not finite")
+
+    # decode: the first step runs once outside the graph it is then captured
+    # in; there each KDA layer's decode kernel is held to its twin on a copy
+    # of the state the prefill left
+    step, steps = KL.kda_decode_step, []
+
+    def held_step(window, conv, g, gate, b, o_norm, state, eps):
+        if torch.cuda.is_current_stream_capturing():
+            return step(window, conv, g, gate, b, o_norm, state, eps)
+        twin = state.clone()
+        want = kda.kda_decode_step_reference(window, conv, g, gate, b, o_norm, twin, eps)
+        out = step(window, conv, g, gate, b, o_norm, state, eps)
+        steps.append((float((out.float() - want.float()).abs().max() / want.float().abs().max()),
+                      float((state - twin).abs().max() / twin.abs().max())))
+        return out
+
+    token, decode_launched = logits.argmax(), kda.kda_decode_step.launches
+    KL.kda_decode_step = held_step
+    try:
+        for pos in range(MLA_PROMPT, MLA_PROMPT + 2):
+            token = model.decode(token, pos).argmax()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # a replay of the graph
+            token = model.decode(token, MLA_PROMPT + 2).argmax()
+            torch.cuda.synchronize()
+    finally:
+        KL.kda_decode_step = step
+    decode_launches = kda.kda_decode_step.launches - decode_launched
+    replay = sum(e.count for e in prof.key_averages() if "kda_decode_kernel" in e.key)
+    if len(steps) != n_kda:
+        raise AssertionError(f"{len(steps)} decode kernel checks for {n_kda} KDA layers")
+    if decode_launches != 2 * n_kda or replay != n_kda:
+        raise AssertionError(f"the decode kernel launched {decode_launches} times from the host "
+                             f"(a step and the capture: {2 * n_kda} for {n_kda} KDA layers) and "
+                             f"{replay} times in a replay of the graph")
+    out_err, state_err = max(e for e, _ in steps), max(e for _, e in steps)
+    if not (out_err <= KDA_DECODE_OUT_REL and state_err <= KDA_REL):
+        raise AssertionError(f"the KDA decode kernel differs from its twin: output {out_err}, "
+                             f"state {state_err} of the largest")
+    peak = torch.cuda.max_memory_allocated()
+    del model, logits
+    torch.cuda.empty_cache()
+    return {
+        "phase": "kda_state_pass", "prompt": MLA_PROMPT, "kda_layers": n_kda, "mla_layers": n_mla,
+        "path_launches": launches, "model_kda_launches": counts["kda_launches"],
+        "model_attention_launches": counts["attention_launches"],
+        "routed_pairs_held": sum(counts["expert_tokens"]),
+        "routed_pairs": MLA_PROMPT * cfg.num_experts_per_tok * sum(
+            cfg.is_moe(i) for i in range(cfg.num_hidden_layers)),
+        "max_err_over_largest": worst, "limit": KDA_REL, "by_layer": layers,
+        "decode_launches": decode_launches, "decode_replay_launches": replay,
+        "decode_checks": len(steps), "decode_out_err_over_largest": out_err,
+        "decode_state_err_over_largest": state_err, "peak_device_bytes": peak,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -3040,14 +3194,16 @@ def main() -> int:
     from rag_faiss_embedding_tpu_torch.ops import pq_decode as PD
     from rag_faiss_embedding_tpu_torch.ops import union_scan as U
 
+    from rag_faiss_embedding_tpu_torch.ops import kda as KDA
+
     names = ("flat_scan", "union_scan", "pq_decode", "fused_proto", "kernel_probe",
-             "mla_prefill_attention")
+             "mla_prefill_attention", "kda_state_pass")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:  # one nvcc each
         libs = dict(zip(names, pool.map(_build.build, names)))
-    for mod in (F, U, PD, FP, KP, A):  # load the libraries and bind their entry points
+    for mod in (F, U, PD, FP, KP, A, KDA):  # load the libraries and bind their entry points
         mod.load()
     emit({"phase": "build", "sources": [KERNEL_SOURCE, UNION_SOURCE, PQ_SOURCE, FP_SOURCE,
-                                        KP_SOURCE, MLA_SOURCE],
+                                        KP_SOURCE, MLA_SOURCE, KDA_SOURCE],
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
 
     paths, max_err = kernel_phase(torch, F)
@@ -3090,6 +3246,8 @@ def main() -> int:
     emit(kp)
     mla = mla_prefill_phase(torch)
     emit(mla)
+    kdap = kda_state_pass_phase(torch)
+    emit(kdap)
 
     loaded = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES]
     if loaded:
@@ -3141,6 +3299,14 @@ def main() -> int:
         "name": "mla_prefill_attention", "route": "cuda", "source": MLA_SOURCE,
         "replaces": None, "launches": mla["path_launches"],
         "rel_l2_max": mla["rel_l2_max"], "max_abs_err_over_row_max": mla["abs_over_row_max"],
+    }, {
+        "name": "kda_state_pass", "route": "cuda", "source": KDA_SOURCE,
+        "replaces": None, "launches": kdap["path_launches"],
+        "max_err_over_largest": kdap["max_err_over_largest"],
+    }, {
+        "name": "kda_decode", "route": "cuda", "source": KDA_SOURCE,
+        "replaces": None, "launches": kdap["decode_launches"],
+        "max_err_over_largest": kdap["decode_out_err_over_largest"],
     }]
     if any(e["launches"] <= 0 for e in kernels) or min(flat_paths.values()) <= 0 or \
             min(v1_paths.values()) <= 0 or min(pq_paths.values()) <= 0:

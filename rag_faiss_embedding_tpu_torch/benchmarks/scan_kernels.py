@@ -1,12 +1,13 @@
 """Time the scan kernels K1 (flat scan), K2 / K3 (IVF union scan), K4 (the
 PQ decode), K5 (the prototype's cell top-k) and K6 (the union-scan stage
-probe) at their headline shapes on one card, beside K1's plain version, and
-the answer generator's prefill attention (``ops/mla_attention``).
+probe) at their headline shapes on one card, beside K1's plain version, the
+answer generator's prefill attention (``ops/mla_attention``) and Kimi-Linear's
+KDA state pass (``ops/kda``).
 
 Run from the repository root, with one CUDA card visible:
 
     python3 rag_faiss_embedding_tpu_torch/benchmarks/scan_kernels.py [--root DIR] [--waves]
-        [--kernels pq_decode attention ...]
+        [--kernels pq_decode attention kda ...]
 
 ``--root DIR`` imports ``rag_faiss_embedding_tpu_torch`` from DIR, another
 checkout of the repository (a ``git archive`` of an earlier commit), so two
@@ -43,6 +44,14 @@ per-call and device time, its bound (the causal attention's FLOPs at bf16's
 989 TFLOP/s), its plain version, and as ``library_device_ms`` the
 device time of PyTorch's FlashAttention-2 over v padded to 192 (what the
 port called before). It needs a checkout that has the kernel.
+The KDA state pass (``kda``) at one KDA layer of the Kimi answer cell's
+prefill (``ATTN_N`` rows in chunks of 64, 32 heads of 128, operands made by
+``ops/kda.chunk_operands`` from inputs drawn as a KDA layer makes them):
+the kernel's per-call and device time (held to its twin first), its bound
+(the larger of its bytes at the HBM rate and its three products a chunk
+at bf16's rate), and its plain twin's time; then one layer's decode step,
+the kernel's and its twin's time (``decode_ms``, ``decode_plain_ms``). It
+needs a checkout that has the kernels.
 ``--k4-crossover`` (this checkout's kernels only) also times K4 with its
 codebook gathered through L2 and staged in shared memory, in turns, at N
 either side of the staged band (``K4_CROSSOVER_ROWS``): the measurements
@@ -66,7 +75,8 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-KERNELS = ("flat_scan", "union_scan", "fused_proto", "kernel_probe", "pq_decode", "attention")
+KERNELS = ("flat_scan", "union_scan", "fused_proto", "kernel_probe", "pq_decode", "attention",
+           "kda")
 # The card's published HBM rate (H100 SXM): K4's bound is its bytes over it
 HBM_BYTES_PER_S = 3.35e12
 # and its dense bf16 tensor-core rate: the prefill attention's bound
@@ -342,6 +352,60 @@ def attention_times(torch, C) -> dict:
     return out
 
 
+def kda_times(torch, C) -> dict:
+    """One KDA layer's state pass at ``ATTN_N`` rows x 32 heads: the kernel
+    (held to its twin first) and the twin."""
+    import torch.nn.functional as Fn
+
+    from rag_faiss_embedding_tpu_torch.ops import kda
+
+    n, heads, d = ATTN_N, 32, kda.WIDTH
+    g = torch.Generator(device="cuda").manual_seed(C.SEED)
+    q = Fn.normalize(torch.randn(n, heads, d, generator=g, device="cuda"), dim=-1) * d ** -0.5
+    k = Fn.normalize(torch.randn(n, heads, d, generator=g, device="cuda"), dim=-1)
+    v = torch.randn(n, heads, d, generator=g, device="cuda")
+    decay = -Fn.softplus(torch.randn(n, heads, d, generator=g, device="cuda") - 4.0)
+    beta = torch.rand(n, heads, generator=g, device="cuda")
+    ops = kda.chunk_operands(*(kda.to_blocks(x.transpose(0, 1), n) for x in (q, k, v, decay)),
+                             kda.to_blocks(beta.t()[..., None], n))
+    s0 = torch.zeros(heads, d, d, device="cuda")
+    del q, k, v, decay, beta
+    chunks = ops[0].shape[1]
+    rows = heads * chunks * kda.CHUNK
+    bytes_moved = 4 * (6 * rows * d + heads * chunks * d + 2 * heads * d * d)
+    flops = 3 * 2 * rows * d * d
+    out = {"n": n, "heads": heads, "chunks": chunks, "bytes": bytes_moved, "flops": flops,
+           "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3}
+    got, last = kda.kda_state_pass(*ops, s0)
+    want, want_last = kda.kda_state_pass_reference(*ops, s0)
+    err = max(float((got - want).abs().max() / want.abs().max()),
+              float((last - want_last).abs().max() / want_last.abs().max()))
+    if err > 1e-4:
+        raise AssertionError(f"kda_state_pass differs from its twin: {err}")
+    del got, want, last, want_last
+    out["max_err_over_largest"] = err
+    out["ms"] = cuda_ms(torch, lambda: kda.kda_state_pass(*ops, s0))
+    out["device_ms"] = device_ms(torch, lambda: kda.kda_state_pass(*ops, s0), 10)
+    out["share"] = out["bound_ms"] / out["device_ms"]
+    out["plain_ms"] = cuda_ms(torch, lambda: kda.kda_state_pass_reference(*ops, s0), 3, 1)
+    del ops
+    torch.cuda.empty_cache()
+    # the decode step of one layer: the kernel's launches, the twin's ~30
+    width = 3 * heads * d
+    step = [torch.randn(4, width, generator=g, device="cuda").bfloat16(),
+            torch.randn(4, width, generator=g, device="cuda") * 0.5,
+            -Fn.softplus(torch.randn(heads, d, generator=g, device="cuda") - 3.0),
+            torch.randn(1, heads * d, generator=g, device="cuda").bfloat16(),
+            torch.randn(1, heads, generator=g, device="cuda").bfloat16(),
+            torch.ones(d, device="cuda")]
+    state = torch.randn(heads, d, d, generator=g, device="cuda") * 0.1
+    out["decode_bytes"] = 4 * 2 * heads * d * d  # the state read and written
+    out["decode_ms"] = cuda_ms(torch, lambda: kda.kda_decode_step(*step, state, 1e-5), 50, 5)
+    out["decode_plain_ms"] = cuda_ms(
+        torch, lambda: kda.kda_decode_step_reference(*step, state, 1e-5), 50, 5)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=REPO,
@@ -382,6 +446,8 @@ def main() -> int:
         out["pq_decode_crossover"] = pq_decode_crossover(torch, C, PD)
     if "attention" in args.kernels:
         out["attention"] = attention_times(torch, C)
+    if "kda" in args.kernels:
+        out["kda"] = kda_times(torch, C)
     if "flat_scan" in args.kernels:
         out["flat_scan"] = flat_scan_times(torch, C, F, sqnorms, args.waves)
     if {"union_scan", "fused_proto", "kernel_probe"} & set(args.kernels):

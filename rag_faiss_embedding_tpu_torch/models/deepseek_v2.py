@@ -73,9 +73,7 @@ top-k, and the sum of the routed and shared experts in float32.
 from __future__ import annotations
 
 import dataclasses
-import json
 import math
-from pathlib import Path
 from typing import Dict, List, Optional
 
 import torch
@@ -157,10 +155,6 @@ class DeepseekV2Config:
             rms_norm_eps=hf["rms_norm_eps"], norm_topk_prob=bool(hf["norm_topk_prob"]),
             routed_scaling_factor=float(hf["routed_scaling_factor"]),
             max_position_embeddings=hf["max_position_embeddings"], dtype=dtype)
-
-    @classmethod
-    def from_file(cls, path) -> "DeepseekV2Config":
-        return cls.from_hf(json.loads(Path(path).read_text()))
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -279,6 +273,38 @@ def _swiglu(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor) -> torch
     """``down(silu(gate x) * up x)``, ``gate_up`` the two stacked by rows."""
     g, u = F.linear(x, gate_up).chunk(2, -1)
     return F.linear(F.silu(g) * u, down)
+
+
+def _routed(layer, x: torch.Tensor, weight: torch.Tensor, expert: torch.Tensor, n_routed: int,
+            counts_to: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The routed experts' weighted sum, float32 [n, hidden], for rows ``x``
+    whose ``k`` choices among ``n_routed`` experts are ``expert`` [n, k]
+    with ``weight``: the (token, choice) pairs sorted by expert, every
+    group in one grouped product (``torch._grouped_mm``, the group ends on
+    the device). The layer holds the first ``held`` experts
+    (``layer.experts_gate_up``'s first dimension): pairs routed to the
+    others add nothing, as on a card that shares the layer with others
+    (expert parallelism), and the grouped product stops at the held pairs'
+    end (its rows past that are never written, so they are zeroed).
+    ``counts_to``: the held experts' pair counts are added to it."""
+    n, k = expert.shape
+    held = layer.experts_gate_up.shape[0]
+    flat = expert.flatten()
+    order = torch.argsort(flat, stable=True)
+    # not bincount: on the card it reads the largest id back to the host
+    counts = flat.new_zeros(n_routed).scatter_add_(0, flat, torch.ones_like(flat))[:held]
+    if counts_to is not None:
+        counts_to += counts
+    ends = counts.cumsum(0).to(torch.int32)
+    g, u = torch._grouped_mm(x[order // k], layer.experts_gate_up.transpose(1, 2),
+                             offs=ends).chunk(2, -1)
+    y = torch._grouped_mm(F.silu(g) * u, layer.experts_down.transpose(1, 2), offs=ends)
+    if held < n_routed:
+        rows = torch.arange(n * k, device=y.device)
+        y.masked_fill_((rows >= ends[-1])[:, None], 0.0)
+    ys = torch.empty_like(y)
+    ys[order] = y  # back to (token, choice) order
+    return (ys.view(n, k, -1).float() * weight[..., None]).sum(1)
 
 
 @dataclasses.dataclass
@@ -441,20 +467,34 @@ class DeepseekV2:
         self.cache = self._step = None  # free the old ones first
         # zeros: a decode step reads every reserved row (those past it with
         # probability 0, which a NaN of fresh memory would still turn to NaN)
-        self.cache = torch.zeros(cfg.num_hidden_layers, positions, cfg.cache_width,
+        self.cache = torch.zeros(self._cached_layers(), positions, cfg.cache_width,
                                  device=self.device, dtype=self.dtype)
-        self._rope = rope_factors(cfg, positions, self.device)
+        self._rope = self._rope_table(positions)
+
+    def _cached_layers(self) -> int:
+        """Layers with a latent cache: every one."""
+        return self.cfg.num_hidden_layers
+
+    def _rope_table(self, positions: int) -> Optional[torch.Tensor]:
+        return rope_factors(self.cfg, positions, self.device)
+
+    def _cache_of(self, i: int) -> torch.Tensor:
+        """Layer ``i``'s latent cache rows [capacity, cache_width]."""
+        return self.cache[i]
 
     # ----------------------------------------------------------- layers
-    def _latent(self, i: int, x: torch.Tensor, factors: torch.Tensor) -> tuple:
+    def _latent(self, i: int, x: torch.Tensor, factors: Optional[torch.Tensor]) -> tuple:
         """Layer ``i``'s queries for rows ``x`` at the positions whose rope
         ``factors`` are given: (q_nope, roped q_pe, the rows' cache values:
-        the normalised latent and the roped key)."""
+        the normalised latent and the roped key). ``factors`` None: no rope
+        (a NoPE layer's q_pe and k_pe are used as they are)."""
         cfg, layer = self.cfg, self.layers[i]
         n, heads, rank = x.shape[0], cfg.num_attention_heads, cfg.kv_lora_rank
         nope = heads * cfg.qk_nope_head_dim
         qa = F.linear(x, layer.qkv_a)
-        pe = apply_rope(qa[:, nope + rank:].view(n, heads + 1, -1), factors[:, None])
+        pe = qa[:, nope + rank:].view(n, heads + 1, -1)
+        if factors is not None:
+            pe = apply_rope(pe, factors[:, None])
         c = _rms(qa[:, nope:nope + rank], layer.kv_norm, cfg.rms_norm_eps)
         rows = torch.cat((c, pe[:, heads]), -1).to(self.dtype)
         return qa[:, :nope].view(n, heads, -1), pe[:, :heads].to(self.dtype), rows
@@ -462,8 +502,8 @@ class DeepseekV2:
     def _attend_prefill(self, i: int, x: torch.Tensor) -> torch.Tensor:
         cfg, layer = self.cfg, self.layers[i]
         n, heads, rank = x.shape[0], cfg.num_attention_heads, cfg.kv_lora_rank
-        q_nope, q_pe, rows = self._latent(i, x, self._rope[:n])
-        self.cache[i, :n] = rows
+        q_nope, q_pe, rows = self._latent(i, x, None if self._rope is None else self._rope[:n])
+        self._cache_of(i)[:n] = rows
         kv = F.linear(rows[:, :rank], layer.kv_b).view(n, heads, -1)
         k_nope, v = kv.split([cfg.qk_nope_head_dim, cfg.v_head_dim], -1)
         o = mla_prefill_attention(q_nope, q_pe, k_nope, rows[:, rank:], v, cfg.softmax_scale)
@@ -475,11 +515,12 @@ class DeepseekV2:
         values of every reserved position, those past the step's masked,
         the probabilities over the 512 latent ones, then ``W_UV`` per head."""
         cfg, layer, step = self.cfg, self.layers[i], self._step
-        q_nope, q_pe, row = self._latent(i, x, self._rope.index_select(0, step["pos"]))
-        self.cache[i].index_copy_(0, step["pos"], row)
+        factors = None if self._rope is None else self._rope.index_select(0, step["pos"])
+        q_nope, q_pe, row = self._latent(i, x, factors)
+        rows = self._cache_of(i)
+        rows.index_copy_(0, step["pos"], row)
         q_lat = torch.bmm(q_nope.transpose(0, 1), layer.w_uk)  # [heads, 1, rank]
         q = torch.cat((q_lat[:, 0], q_pe[0]), -1) * cfg.softmax_scale  # [heads, cache_width]
-        rows = self.cache[i]
         scores = (q @ rows.t()).masked_fill_(step["after"], float("-inf"))
         probs = torch.softmax(scores, -1, dtype=torch.float32).to(self.dtype)
         ctx = probs @ rows[:, : cfg.kv_lora_rank]  # [heads, rank]
@@ -487,39 +528,31 @@ class DeepseekV2:
         return F.linear(o.view(1, -1), layer.o)
 
     def _moe(self, i: int, x32: torch.Tensor, count: bool) -> torch.Tensor:
-        """Router on the float32 rows; the routed experts in one grouped
-        product over the rows' (token, choice) pairs sorted by expert; the
-        shared experts; float32 sum. ``count``: add the pairs to
-        ``expert_tokens`` (a prefill's, not a decode step's)."""
+        """Router on the float32 rows (softmax, greedy top-k); the routed
+        experts (``_routed``); the shared experts; float32 sum. ``count``:
+        add the pairs to ``expert_tokens`` (a prefill's, not a decode
+        step's)."""
         cfg, layer = self.cfg, self.layers[i]
-        n, k = x32.shape[0], cfg.num_experts_per_tok
-        weight, expert = torch.topk(F.linear(x32, layer.router).softmax(-1), k, -1)
+        weight, expert = torch.topk(F.linear(x32, layer.router).softmax(-1),
+                                    cfg.num_experts_per_tok, -1)
         if cfg.norm_topk_prob:
             weight = weight / weight.sum(-1, keepdim=True)
         if cfg.routed_scaling_factor != 1:
             weight = weight * cfg.routed_scaling_factor
         x = x32.to(self.dtype)
-        flat = expert.flatten()
-        order = torch.argsort(flat, stable=True)
-        # not bincount: on the card it reads the largest id back to the host
-        counts = flat.new_zeros(cfg.n_routed_experts).scatter_add_(0, flat, torch.ones_like(flat))
-        if count:
-            self._expert_counts += counts
-        ends = counts.cumsum(0).to(torch.int32)
-        g, u = torch._grouped_mm(x[order // k], layer.experts_gate_up.transpose(1, 2),
-                                 offs=ends).chunk(2, -1)
-        y = torch._grouped_mm(F.silu(g) * u, layer.experts_down.transpose(1, 2), offs=ends)
-        ys = torch.empty_like(y)
-        ys[order] = y  # back to (token, choice) order
-        out = (ys.view(n, k, -1).float() * weight[..., None]).sum(1)
+        out = _routed(layer, x, weight, expert, cfg.n_routed_experts,
+                      self._expert_counts if count else None)
         if layer.gate_up is not None:
             out += _swiglu(x, layer.gate_up, layer.down)
         return out
 
+    def _attend(self, i: int, h: torch.Tensor, decode: bool) -> torch.Tensor:
+        return self._attend_decode(i, h) if decode else self._attend_prefill(i, h)
+
     def _block(self, i: int, x: torch.Tensor, decode: bool) -> torch.Tensor:
         cfg, layer = self.cfg, self.layers[i]
         h = _rms(x, layer.norm_in, cfg.rms_norm_eps).to(self.dtype)
-        x = x + (self._attend_decode(i, h) if decode else self._attend_prefill(i, h))
+        x = x + self._attend(i, h, decode)
         h = _rms(x, layer.norm_post, cfg.rms_norm_eps)
         if cfg.is_moe(i):
             return x + self._moe(i, h, not decode)
@@ -545,6 +578,16 @@ class DeepseekV2:
         self.attention_launches = mla_prefill_attention.launches - launched
         return self._head(x[-1:])
 
+    def prefill_counts(self) -> dict:
+        """The last prefill's counts, which the ``generator.prefill`` span
+        adds while recording (``expert_tokens`` copies from the device)."""
+        return {"expert_tokens": self.expert_tokens,
+                "attention_launches": self.attention_launches}
+
+    def decode_counts(self) -> dict:
+        """Counts the ``generator.decode`` span adds while recording: none."""
+        return {}
+
     @torch.inference_mode()
     def decode(self, token: torch.Tensor, pos: int) -> torch.Tensor:
         """``token`` (a one-element device tensor) at position ``pos``, which
@@ -565,16 +608,22 @@ class DeepseekV2:
         if self.device.type != "cuda":
             return self._decode_step()
         if "graph" not in step:
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                self._decode_step()  # the step once outside the graph (it writes this row)
-            torch.cuda.current_stream(self.device).wait_stream(side)
+            self._warm_decode_step()
             step["graph"] = torch.cuda.CUDAGraph()
             with torch.cuda.graph(step["graph"]):
                 step["logits"] = self._decode_step()
         step["graph"].replay()
         return step["logits"].clone()
+
+    def _warm_decode_step(self) -> None:
+        """The step once outside the graph, on a side stream, before its
+        capture (it writes this position's row, which the graph's replay
+        writes again)."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._decode_step()
+        torch.cuda.current_stream(self.device).wait_stream(side)
 
     def _decode_step(self) -> torch.Tensor:
         step = self._step

@@ -13,13 +13,15 @@ egress, so generation is pluggable:
 - "extractive": dependency-free fallback — selects the retrieved-context
   sentences most relevant to the query by TF cosine and stitches them into a
   short answer. Keeps the RAG loop fully functional offline.
-- "native": a DeepSeek-V2 decoder (``models/deepseek_v2.py``) on the
-  card: the prompt template, WordPiece tokens, a prefill that fills the
-  latent cache, greedy decoding of exactly ``max_length`` tokens through
-  it (end-of-sequence is not looked for, so every call has one length),
-  and the detokenized answer. ``model_name`` is a directory holding a
-  DeepSeek-V2 ``config.json`` (its ``torch_dtype`` the precision, bf16
-  where none is named) and the tokenizer's ``vocab.txt``. No checkpoint
+- "native": a decoder on the card, DeepSeek-V2 (``models/deepseek_v2.py``)
+  or Kimi-Linear (``models/kimi_linear.py``) as ``config.json``'s
+  ``model_type`` names (``deepseek_v2`` or ``kimi_linear``): the prompt
+  template, WordPiece tokens, a prefill that fills the model's caches,
+  greedy decoding of exactly ``max_length`` tokens through them
+  (end-of-sequence is not looked for, so every call has one length), and
+  the detokenized answer. ``model_name`` is a directory holding the
+  model's ``config.json`` (its ``torch_dtype`` the precision, bf16 where
+  none is named) and the tokenizer's ``vocab.txt``. No checkpoint
   file is read yet: the weights come from ``load_state_dict`` (the
   checkpoint's names), and a call before it raises.
 
@@ -40,7 +42,9 @@ logger = get_logger(__name__)
 
 
 class NativeGenerator:
-    """A DeepSeek-V2 decoder on one device behind ``generate(prompt)``.
+    """A DeepSeek-V2 or Kimi-Linear decoder on one device behind
+    ``generate(prompt)``; ``config.json``'s ``model_type`` chooses
+    (``deepseek_v2`` where it names none).
 
     ``keep``: a list while set; each call then appends its prompt ids, its
     answer ids and the float32 logits it chose them from (``[answer,
@@ -48,18 +52,28 @@ class NativeGenerator:
     step). ``last_ids``: the last call's answer ids."""
 
     def __init__(self, model_name: str, answer_tokens: int, device=None):
+        import json
+
         import torch
 
         from .. import default_device
-        from .deepseek_v2 import DeepseekV2, DeepseekV2Config
         from .tokenizer import WordPieceTokenizer
 
         path = Path(model_name)
         for name in ("config.json", "vocab.txt"):
             if not (path / name).is_file():
-                raise ValueError(f"no {name} in {model_name!r}: the native generator "
-                                 "reads a DeepSeek-V2 config.json and its vocab.txt")
-        cfg = DeepseekV2Config.from_file(path / "config.json")
+                raise ValueError(f"no {name} in {model_name!r}: the native generator reads "
+                                 "a DeepSeek-V2 or Kimi-Linear config.json and its vocab.txt")
+        hf = json.loads((path / "config.json").read_text())
+        kind = hf.get("model_type", "deepseek_v2")
+        if kind == "deepseek_v2":
+            from .deepseek_v2 import DeepseekV2 as Model, DeepseekV2Config as ModelConfig
+        elif kind == "kimi_linear":
+            from .kimi_linear import KimiLinear as Model, KimiLinearConfig as ModelConfig
+        else:
+            raise ValueError(f"model_type {kind!r}: the native generator runs deepseek_v2 "
+                             "and kimi_linear")
+        cfg = ModelConfig.from_hf(hf)
         tokenizer = WordPieceTokenizer.from_vocab_file(path / "vocab.txt")
         if tokenizer.vocab_size > cfg.vocab_size:
             raise ValueError(f"a tokenizer of {tokenizer.vocab_size} ids for a model of "
@@ -70,7 +84,7 @@ class NativeGenerator:
         self.tokenizer.enable_native()
         self.answer_tokens = answer_tokens
         self.device = torch.device(device) if device is not None else default_device()
-        self.model = DeepseekV2(cfg, self.device)
+        self.model = Model(cfg, self.device)
         self.keep: Optional[list] = None
         self.last_ids: List[int] = []
 
@@ -99,21 +113,22 @@ class NativeGenerator:
         if not model.loaded:
             raise RuntimeError("the native generator has no weights: load_state_dict first")
         model.reserve(n + self.answer_tokens - 1)
-        kept = [] if self.keep is not None else None
         prompt = torch.from_numpy(np.asarray(ids, dtype=np.int64)).to(self.device)
         with span("generator.prefill", tokens=n) as s:
             logits = model.prefill(prompt)
             token = logits.argmax()
             if s:
-                s.add(expert_tokens=model.expert_tokens,
-                      attention_launches=model.attention_launches)
+                s.add(**model.prefill_counts())
             with span("generator.to_host"):
                 out = [int(token)]
+        # the kept logits in one buffer, a block the caching allocator holds
+        # already, not a new small block a step
+        kept = None if self.keep is None else logits.new_empty((self.answer_tokens, *logits.shape))
         if kept is not None:
-            kept.append(logits)
+            kept[0] = logits
         cuda = self.device.type == "cuda"
         host = torch.empty(self.answer_tokens - 1, dtype=torch.long, pin_memory=cuda)
-        with span("generator.decode", steps=self.answer_tokens - 1, context=n):
+        with span("generator.decode", steps=self.answer_tokens - 1, context=n) as s:
             done = []
             for j, pos in enumerate(range(n, n + self.answer_tokens - 1)):
                 logits = model.decode(token, pos)
@@ -123,15 +138,16 @@ class NativeGenerator:
                 if cuda:
                     done[-1].record()
                 if kept is not None:
-                    kept.append(logits)
+                    kept[j + 1] = logits
             for j, event in enumerate(done):
                 with span("generator.to_host"):
                     if event is not None:
                         event.synchronize()
                     out.append(int(host[j]))
+            if s:  # after the last step's token: no wait of its own
+                s.add(**model.decode_counts())
         if kept is not None:
-            self.keep.append({"prompt": list(ids), "answer": out,
-                              "logits": torch.stack(kept)})
+            self.keep.append({"prompt": list(ids), "answer": out, "logits": kept})
         self.last_ids = out
         return out
 

@@ -2,9 +2,11 @@
 CUDA kernel and its plain version.
 
 Replaces no TPU kernel: the JAX package has no DeepSeek model. ``models/
-deepseek_v2.py``'s prefill calls ``mla_prefill_attention`` once a layer with
-the operands where it has them: ``q_nope`` [n, H, 128] (a strided view of
-the layer's first product), ``q_pe`` [n, H, 64] (the roped queries),
+deepseek_v2.py``'s prefill calls ``mla_prefill_attention`` once a layer
+(``models/kimi_linear.py``'s, through it, once an MLA layer: 32 heads, q_pe
+and k_pe unrotated, NoPE) with the operands where it has them: ``q_nope``
+[n, H, 128] (a strided view of the layer's first product), ``q_pe`` [n, H,
+64] (the roped queries; NoPE's a strided view of the same product),
 ``k_nope`` and ``v`` [n, H, 128] (the two halves of ``W_kvb c_kv``, strided
 views), and ``k_pe`` [n, 64], the one rope key all heads share. Each query
 row attends to every key at or before its position; the result is
